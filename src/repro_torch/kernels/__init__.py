@@ -1,0 +1,56 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
+version.
+
+``KERNEL_ORACLES`` is the port's kernel registry, the counterpart of
+``repro.kernels.KERNEL_ORACLES``: every kernel wrapper is listed with its
+plain version in :mod:`repro_torch.kernels.ref`, its CUDA source under
+``csrc/`` and the test module that holds the two together.
+:func:`check_kernel_oracles` is its self-test.
+"""
+from __future__ import annotations
+
+import re
+from pathlib import Path
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.ref import paged_attention_ref
+
+# kernel wrapper -> (plain version in kernels/ref.py, parity test module)
+KERNEL_ORACLES: dict[str, tuple[str, str]] = {
+    "paged_attention": ("paged_attention_ref", "tests/test_torch_kernels.py"),
+}
+
+_PKG = Path(__file__).resolve().parent
+_ROOT = _PKG.parents[2]
+
+
+def check_kernel_oracles(registry: dict[str, tuple[str, str]] | None = None,
+                         ) -> list[str]:
+    """Problems with the registry (empty when it is sound): every CUDA
+    source has an entry, every entry names a wrapper exported here, a plain
+    version that exists in ``ref``, and a test module that mentions both."""
+    registry = KERNEL_ORACLES if registry is None else registry
+    problems = []
+    for src in sorted((_PKG / "csrc").glob("*.cu")):
+        if src.stem not in registry:
+            problems.append(f"csrc/{src.name} has no KERNEL_ORACLES entry")
+    for kernel, (oracle, test) in sorted(registry.items()):
+        if not callable(globals().get(kernel)):
+            problems.append(f"{kernel}: no wrapper exported by "
+                            "repro_torch.kernels")
+        if not callable(getattr(ref, oracle, None)):
+            problems.append(f"{kernel}: plain version {oracle} missing "
+                            "from repro_torch.kernels.ref")
+        path = _ROOT / test
+        if not path.is_file():
+            problems.append(f"{kernel}: test module {test} missing")
+        elif not all(re.search(rf"\b{name}\b", path.read_text())
+                     for name in (kernel, oracle)):
+            problems.append(f"{kernel}: {test} does not name both "
+                            f"{kernel} and {oracle}")
+    return problems
+
+
+__all__ = ["KERNEL_ORACLES", "check_kernel_oracles", "paged_attention",
+           "paged_attention_ref"]

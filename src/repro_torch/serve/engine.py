@@ -1,0 +1,389 @@
+"""Serving engine: paged KV over the block-native decode path.
+
+The counterpart of ``repro.serve.engine.ServeEngine`` in ``mode="paged"``
+with ``kv_impl="kernel"``. A :class:`~repro_torch.serve.batch.BlockPool`
+owns the physical ``[num_blocks + 1, block_size, L, Hkv, Dh]`` KV pools;
+each request holds only the blocks its tokens occupy, mapped through a
+per-slot block table. Admission is gated on *free blocks*, not on slot
+count; when a decode chunk would exhaust the pool, the youngest request is
+preempted back to the queue front and restarts later (greedy decode
+regenerates its stream). Prefill writes straight into freshly allocated
+blocks; decode appends each token to its slot's tail block and attends
+through the block table with the CUDA paged-attention kernel
+(:func:`repro_torch.kernels.paged_attention`). With ``share_prefix=True``
+(default) a :class:`~repro_torch.serve.batch.PrefixIndex` aliases common
+prompt prefixes to the blocks that already hold them: prefix K/V is written
+once, admission counts resident shared blocks as zero additional need, an
+exact whole-prompt hit skips prefill, and a shared tail block is forked
+(copy-on-write) before any slot's append writes to it.
+
+``run()`` drains the queue to ``{rid: tokens}``; ``stream()`` yields
+``(rid, delta_tokens, done)`` at admission and at every chunk boundary.
+
+Not ported yet (``ROADMAP.md``): the continuous and cohort modes, the
+``"reference"`` and ``"pallas"`` read paths, speculative decoding and
+pow2 prefill buckets. Asking for them raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import require_dense, tree_to
+from repro_torch.obs.recorder import NullRecorder
+from repro_torch.serve.batch import (BlockPool, PrefixIndex, copy_block,
+                                     write_prefill)
+from repro_torch.serve.scheduler import Request, SlotScheduler
+from repro_torch.serve.steps import make_paged_kernel_decode, make_prefill_step
+
+KV_IMPLS = ("auto", "kernel")
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, params, *, capacity: int = 256,
+                 max_batch: int = 8, eos_id: int | None = None,
+                 mode: str = "paged", decode_chunk: int = 8,
+                 block_size: int = 16, num_blocks: int | None = None,
+                 kv_impl: str = "auto", share_prefix: bool = True,
+                 speculate=None, recorder=None,
+                 device: str | torch.device = "cuda"):
+        if mode != "paged":
+            raise NotImplementedError(
+                f"mode={mode!r}: the port serves mode='paged' only "
+                "(ROADMAP.md, queue 1, paged-mode gaps)")
+        if kv_impl not in KV_IMPLS:
+            raise NotImplementedError(
+                f"kv_impl={kv_impl!r}: the port has the 'kernel' read path "
+                "only, which 'auto' resolves to (ROADMAP.md, queue 1, "
+                "paged-mode gaps)")
+        if speculate is not None:
+            raise NotImplementedError(
+                "speculate=: speculative decoding is not ported yet "
+                "(ROADMAP.md, queue 1, speculative decoding)")
+        require_dense(cfg)
+        self.device = resolve_device(device)
+        # host-side only: the recorder sees counters and spans at the chunk
+        # boundaries the loop already crosses. Only the no-op recorder is
+        # ported so far (ROADMAP.md, queue 1, paged-mode gaps: obs).
+        self.recorder = NullRecorder() if recorder is None else recorder
+        # f32 parameters are cast to cfg.dtype at every use in the JAX
+        # package; casting them once here is the same arithmetic
+        self.cfg = cfg
+        self.params = tree_to(params, device=self.device, dtype=cfg.dtype)
+        self.capacity, self.max_batch = capacity, max_batch
+        self.eos_id, self.mode, self.decode_chunk = eos_id, mode, decode_chunk
+        self.block_size = block_size
+        self.kv_impl = "kernel"
+        self.scheduler = SlotScheduler(max_batch)
+        self._prefill = make_prefill_step(cfg, capacity)
+        if num_blocks is None:
+            # the KV memory a dense engine of this max_batch/capacity would
+            # reserve up front
+            num_blocks = max_batch * capacity // block_size
+        self.pool = BlockPool(cfg, num_blocks=num_blocks,
+                              block_size=block_size, max_batch=max_batch,
+                              capacity=capacity, device=self.device)
+        self._paged_decode = make_paged_kernel_decode(
+            cfg, block_size, decode_chunk, eos_id)
+        self.prefix = PrefixIndex(self.pool.alloc) if share_prefix else None
+        self._next_rid = 0
+        self._streamed: dict[int, int] = {}
+        self.stats: dict = {}
+        self.completed: dict[int, Request] = {}
+
+    # -- request intake ------------------------------------------------------
+
+    def submit(self, prompt, max_new_tokens: int = 16) -> int:
+        prompt = np.asarray(prompt, np.int32)
+        total = len(prompt) + max_new_tokens
+        if (total > self.capacity
+                or self.pool.blocks_for(total) > self.pool.num_blocks):
+            self.recorder.counter_add("serve_submit_rejects")
+            raise ValueError(
+                f"request needs {total} cache positions "
+                f"({self.pool.blocks_for(total)} blocks); pool holds "
+                f"{self.pool.num_blocks} blocks of {self.block_size} "
+                f"with per-request capacity {self.capacity}")
+        rid = self._next_rid
+        self._next_rid += 1
+        req = Request(rid, prompt, max_new_tokens,
+                      submit_s=time.perf_counter())
+        self.scheduler.submit(req)
+        self.recorder.counter_add("serve_submitted")
+        self.recorder.instant("submit", rid=rid, prompt_len=len(prompt),
+                              budget=max_new_tokens)
+        return rid
+
+    # -- shared helpers ------------------------------------------------------
+
+    def _emit(self, reqs):
+        """Yield the not-yet-streamed suffix of each request's output.
+
+        After a preemption the request regenerates its tokens from scratch;
+        the per-rid high-water mark suppresses re-yields until the
+        regeneration passes what was already streamed."""
+        for req in reqs:
+            n = self._streamed.get(req.rid, 0)
+            delta = req.output[n:]
+            if delta:
+                self._streamed[req.rid] = n + len(delta)
+                yield req.rid, list(delta), req.done
+
+    def _prefill_first_token(self, req: Request):
+        """Run the exact-length admission prefill; returns (first_token,
+        request cache)."""
+        with self.recorder.span("prefill", rid=req.rid,
+                                prompt_len=len(req.prompt)):
+            tokens = torch.as_tensor(req.prompt[None], device=self.device)
+            logits, req_cache = self._prefill(self.params, {"tokens": tokens})
+            first = int(torch.argmax(logits[0, -1]))
+        if not req.first_token_s:
+            req.first_token_s = time.perf_counter()
+        return first, req_cache
+
+    def _evict_in_flight(self) -> None:
+        """Return in-flight requests to the queue front (youngest first, so
+        FIFO order is preserved) and release their blocks. A consumer that
+        abandons ``stream()`` mid-drain must not strand slots or leak KV
+        blocks: the next ``run()``/``stream()`` call re-admits the evicted
+        requests."""
+        sched = self.scheduler
+        for i, _ in sorted(sched.occupied(), key=lambda t: -t[1].admit_seq):
+            self.pool.release(i)
+            sched.preempt(i)
+
+    # -- paged KV ------------------------------------------------------------
+
+    def _stream_paged(self):
+        sched, pool = self.scheduler, self.pool
+        B = self.max_batch
+        tok = np.zeros((B,), np.int32)
+        idx = np.zeros((B,), np.int32)
+        live = np.zeros((B,), bool)
+        remaining = np.zeros((B,), np.int32)
+        stats = {"prefills": 0, "decode_dispatches": 0, "decode_steps": 0,
+                 "emitted_tokens": 0, "preemptions": 0, "peak_concurrency": 0,
+                 "prefix_hits": 0, "cow_forks": 0, "prefill_tokens": 0,
+                 "prefill_s": 0.0, "peak_blocks_in_use": 0,
+                 "peak_shared_blocks": 0}
+
+        def finish(i: int) -> Request:
+            req = sched.release(i)
+            pool.release(i)
+            req.finish_s = time.perf_counter()
+            live[i] = False
+            remaining[i] = 0
+            self.completed[req.rid] = req
+            self.recorder.counter_add("serve_finished")
+            return req
+
+        def preempt(i: int) -> None:
+            pool.release(i)
+            req = sched.preempt(i)
+            live[i] = False
+            remaining[i] = 0
+            stats["preemptions"] += 1
+            self.recorder.counter_add("serve_preemptions")
+            self.recorder.instant("preempt", rid=req.rid,
+                                  regenerated=len(req.output))
+
+        try:
+            yield from self._paged_loop(tok, idx, live, remaining, stats,
+                                        finish, preempt)
+        finally:
+            self.stats = stats
+            self._evict_in_flight()
+
+    def _admission_need(self, req: Request) -> int:
+        """Free-list headroom admitting ``req`` costs right now: fresh pages
+        its prompt (+1 token) needs beyond the cached-prefix match, plus one
+        free-list pop per matched block that must be *revived* (refcount 0 —
+        resident shared blocks cost zero additional need), plus one block of
+        copy-on-write headroom when an exact match shares a partial tail
+        block (the first decode append forks it)."""
+        pool = self.pool
+        pages = pool.blocks_for(len(req.prompt) + 1)
+        m = self.prefix.match(req.prompt) if self.prefix is not None else None
+        if m is None:
+            return pages
+        resident = sum(1 for b in m.blocks if pool.refcount(b) > 0)
+        need = pages - resident
+        if m.exact and len(req.prompt) % self.block_size:
+            need += 1
+        return need
+
+    def _admit(self, stats, finish, preempt, tok, idx, live, remaining):
+        """One admission round: prefill (or prefix-attach) queued requests
+        into free slots while the pool has room. Yields stream deltas."""
+        sched, pool, prefix = self.scheduler, self.pool, self.prefix
+        # ``claimed`` front-runs the attach/ensure calls below so one round
+        # admitting several requests cannot oversubscribe the free list
+        claimed = [0]
+
+        def can_admit(r) -> bool:
+            need = self._admission_need(r)
+            if claimed[0] + need > pool.free_blocks:
+                self.recorder.counter_add("serve_admission_rejects")
+                return False
+            claimed[0] += need
+            return True
+
+        for i, req in sched.admit(can_admit):
+            # re-match at attach time: an earlier admission this round may
+            # have reused a freed-but-cached block the can_admit match
+            # counted on (its generation bump invalidates it)
+            m = prefix.match(req.prompt) if prefix is not None else None
+            if m is not None and m.exact:
+                # every page (incl. the partial tail) and the greedy first
+                # token are cached: skip prefill and alias the blocks below
+                first, req_cache = m.first_tok, None
+                stats["prefix_hits"] += 1
+                if not req.first_token_s:
+                    req.first_token_s = time.perf_counter()
+                self.recorder.counter_add("serve_prefix_hits")
+                self.recorder.instant("prefix_hit", rid=req.rid,
+                                      cached_tokens=m.n_tokens)
+            else:
+                t_pf = time.perf_counter()
+                first, req_cache = self._prefill_first_token(req)
+                stats["prefills"] += 1
+                stats["prefill_s"] += time.perf_counter() - t_pf
+                stats["prefill_tokens"] += len(req.prompt)
+            stats["emitted_tokens"] += 1
+            if req.add_token(first, self.eos_id):
+                finish(i)   # prefill token was EOS or budget == 1
+                yield from self._emit([req])
+                continue
+            if m is not None:
+                pool.attach(i, m.blocks)
+            if not pool.ensure(i, len(req.prompt)):
+                # the can_admit claim was computed against a larger match
+                # than survived to attach time: hand the request back to
+                # the queue front; it re-admits next round
+                preempt(i)
+                continue
+            if m is None or not m.exact:
+                # write once: matched pages stay untouched (they already
+                # hold this prompt's prefix K/V and may be shared with live
+                # readers) — route them to trash, scatter only the tail
+                tbl = pool.tables[i].copy()
+                if m is not None:
+                    tbl[:len(m.blocks)] = pool.trash
+                write_prefill(pool.data, req_cache, tbl,
+                              block_size=self.block_size)
+                if prefix is not None:
+                    prefix.record(req.prompt,
+                                  pool.tables[i, :pool.owned(i)], first)
+            tok[i], idx[i] = first, len(req.prompt)
+            live[i], remaining[i] = True, req.remaining
+            yield from self._emit([req])
+
+    def _ensure_chunk_blocks(self, stats, preempt, idx, live, remaining):
+        """Pre-chunk block budget, oldest first: every live slot makes its
+        tail page exclusive (copy-on-write fork — shared blocks are
+        read-only, and the append writes through ``tables[i, idx //
+        block_size]``) and covers its chunk's writes. If the pool runs dry,
+        the youngest request is evicted — it has the least work to redo and
+        re-queues at the front, keeping FIFO."""
+        sched, pool = self.scheduler, self.pool
+        for i, _ in sorted(sched.occupied(), key=lambda t: t[1].admit_seq):
+            if not live[i]:
+                continue
+            page = int(idx[i]) // self.block_size
+            while pool.needs_fork(i, page):
+                if pool.free_blocks:
+                    old, new = pool.fork_for_write(i, page)
+                    copy_block(pool.data, old, new)
+                    stats["cow_forks"] += 1
+                    self.recorder.counter_add("serve_cow_forks")
+                    break
+                preempt(sched.youngest())   # may drop the shared ref
+            if not live[i]:
+                continue   # preempted itself while hunting fork room
+            need = int(idx[i]) + min(self.decode_chunk, int(remaining[i]))
+            while not pool.ensure(i, need):
+                victim = sched.youngest()
+                if victim == i and len(sched.occupied()) == 1:
+                    # unreachable: submit() caps a lone request's total
+                    # need at the pool size
+                    raise RuntimeError("block pool exhausted by a single "
+                                       "request")
+                preempt(victim)
+                if victim == i:
+                    break
+
+    def _paged_loop(self, tok, idx, live, remaining, stats, finish, preempt):
+        sched, pool, dev = self.scheduler, self.pool, self.device
+        while sched.has_work():
+            yield from self._admit(stats, finish, preempt, tok, idx, live,
+                                   remaining)
+            stats["peak_concurrency"] = max(stats["peak_concurrency"],
+                                            len(sched.occupied()))
+            stats["peak_blocks_in_use"] = max(
+                stats["peak_blocks_in_use"],
+                pool.num_blocks - pool.free_blocks)
+            if not live.any():
+                continue
+            self._ensure_chunk_blocks(stats, preempt, idx, live, remaining)
+            stats["peak_shared_blocks"] = max(stats["peak_shared_blocks"],
+                                              pool.shared_blocks())
+            if not live.any():
+                continue
+            # length clamp: hand the device only the first `hw` table
+            # columns (every live slot's blocks sit below the allocator's
+            # high-water mark), bucketed to the next power of two as the
+            # JAX engine buckets it
+            hw = min(1 << max(pool.high_water() - 1, 0).bit_length(),
+                     pool.max_blocks)
+            with self.recorder.span("decode_chunk", steps=self.decode_chunk):
+                out = self._paged_decode(
+                    self.params, torch.as_tensor(tok, device=dev),
+                    pool.data,
+                    torch.as_tensor(pool.tables[:, :hw].copy(), device=dev),
+                    torch.as_tensor(idx, device=dev),
+                    torch.as_tensor(live, device=dev),
+                    torch.as_tensor(remaining, device=dev))
+                (tok_d, pool.data, idx_d, live_d, remaining_d, tokens,
+                 emitted) = out
+                # one host read per chunk: the chunk's tokens, emit masks
+                # and the slots' carried state, packed into one int32 array
+                c = self.decode_chunk
+                host = torch.cat([
+                    tokens, emitted.to(torch.int32),
+                    torch.stack([tok_d, idx_d, live_d.to(torch.int32),
+                                 remaining_d])]).cpu().numpy()
+                tokens, emitted = host[:c], host[c:2 * c].astype(bool)
+            # in place: finish()/preempt() close over these same arrays
+            tok[:], idx[:], live[:], remaining[:] = host[2 * c:]
+            stats["decode_dispatches"] += 1
+            stats["decode_steps"] += self.decode_chunk
+            stats["emitted_tokens"] += int(emitted.sum())
+            reqs = [r for _, r in sched.occupied()]
+            for i in sched.record_decode(tokens, emitted, self.eos_id):
+                finish(i)
+            yield from self._emit(reqs)
+
+    # -- entry points --------------------------------------------------------
+
+    def stream(self):
+        """Generator over ``(rid, delta_tokens, done)`` events.
+
+        Deltas arrive at admission (the prefill-produced first token) and at
+        every ``decode_chunk`` boundary; each request's concatenated deltas
+        are exactly its ``run()`` output, and ``done=True`` rides on its
+        final delta. Preempted requests never re-yield tokens that were
+        already streamed. Abandoning the generator mid-drain evicts the
+        in-flight requests back to the queue; a later ``run()``/``stream()``
+        resumes where it stopped."""
+        yield from self._stream_paged()
+
+    def run(self) -> dict[int, list[int]]:
+        """Drain the queue; returns {rid: generated tokens}."""
+        results: dict[int, list[int]] = {}
+        for rid, delta, _done in self.stream():
+            results.setdefault(rid, []).extend(delta)
+        return results
