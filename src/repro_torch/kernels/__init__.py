@@ -14,11 +14,15 @@ from pathlib import Path
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.paged_attention import paged_attention
-from repro_torch.kernels.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention_multi import paged_attention_multi
+from repro_torch.kernels.ref import (paged_attention_multi_ref,
+                                     paged_attention_ref)
 
 # kernel wrapper -> (plain version in kernels/ref.py, parity test module)
 KERNEL_ORACLES: dict[str, tuple[str, str]] = {
     "paged_attention": ("paged_attention_ref", "tests/test_torch_kernels.py"),
+    "paged_attention_multi": ("paged_attention_multi_ref",
+                              "tests/test_torch_kernels.py"),
 }
 
 _PKG = Path(__file__).resolve().parent
@@ -28,17 +32,23 @@ _ROOT = _PKG.parents[2]
 def check_kernel_oracles(registry: dict[str, tuple[str, str]] | None = None,
                          ) -> list[str]:
     """Problems with the registry (empty when it is sound): every CUDA
-    source has an entry, every entry names a wrapper exported here, a plain
-    version that exists in ``ref``, and a test module that mentions both."""
+    source has an entry, every entry names a wrapper exported here, a C
+    entry point ``<kernel>_launch`` in a source, a plain version that
+    exists in ``ref``, and a test module that mentions both."""
     registry = KERNEL_ORACLES if registry is None else registry
     problems = []
-    for src in sorted((_PKG / "csrc").glob("*.cu")):
+    sources = sorted((_PKG / "csrc").glob("*.cu"))
+    for src in sources:
         if src.stem not in registry:
             problems.append(f"csrc/{src.name} has no KERNEL_ORACLES entry")
     for kernel, (oracle, test) in sorted(registry.items()):
         if not callable(globals().get(kernel)):
             problems.append(f"{kernel}: no wrapper exported by "
                             "repro_torch.kernels")
+        if not any(re.search(rf"\b{kernel}_launch\b", src.read_text())
+                   for src in sources):
+            problems.append(f"{kernel}: no {kernel}_launch entry point in "
+                            "csrc/")
         if not callable(getattr(ref, oracle, None)):
             problems.append(f"{kernel}: plain version {oracle} missing "
                             "from repro_torch.kernels.ref")
@@ -53,4 +63,5 @@ def check_kernel_oracles(registry: dict[str, tuple[str, str]] | None = None,
 
 
 __all__ = ["KERNEL_ORACLES", "check_kernel_oracles", "paged_attention",
+           "paged_attention_multi", "paged_attention_multi_ref",
            "paged_attention_ref"]

@@ -1,8 +1,9 @@
 """Paged decode attention: the CUDA kernel's wrapper.
 
-The kernel (``csrc/paged_attention.cu``) replaces the TPU kernel
-``repro.kernels.paged_attention.paged_attention``; its source note gives the
-bound and the design. This wrapper validates the arguments, allocates the
+The kernel (``paged_attention_decode_kernel`` in ``csrc/paged_attention.cu``,
+the Q = 1 case of that file's paged-attention body) replaces the TPU kernel
+``repro.kernels.paged_attention.paged_attention``; the source's note gives
+the bound and the design. This wrapper validates the arguments, allocates the
 output, launches on the current stream and counts the launch. CPU tensors go
 to the plain version (:func:`repro_torch.kernels.ref.paged_attention_ref`);
 CUDA tensors go to the kernel, and nowhere else.
@@ -33,12 +34,16 @@ def _launcher():
     return fn
 
 
-def _check(q, k_pages, v_pages, tables, lengths, layer):
-    if q.dim() != 3 or k_pages.dim() != 5:
-        raise ValueError(f"q must be [B, H, Dh] and the pools "
+def check_args(q, k_pages, v_pages, tables, lengths, layer, *,
+               window: bool = False):
+    """Raise on what the kernels do not take. ``q`` is ``[B, H, Dh]``, or
+    ``[B, Q, H, Dh]`` with ``window=True``."""
+    q_layout = "[B, Q, H, Dh]" if window else "[B, H, Dh]"
+    if q.dim() != (4 if window else 3) or k_pages.dim() != 5:
+        raise ValueError(f"q must be {q_layout} and the pools "
                          f"[N+1, bs, L, Hkv, Dh]; got {tuple(q.shape)} and "
                          f"{tuple(k_pages.shape)}")
-    B, H, Dh = q.shape
+    B, H, Dh = q.shape[0], q.shape[-2], q.shape[-1]
     _, _, L, Hkv, Dh_kv = k_pages.shape
     if B < 1:
         # the kernel launches one block row per slot; an empty batch would
@@ -88,7 +93,7 @@ def paged_attention(q, k_pages, v_pages, tables, lengths, layer=0):
     Returns [B, H, Dh] in q's dtype. ``paged_attention.launches`` counts the
     kernel launches (CPU calls to the plain version are not counted).
     """
-    _check(q, k_pages, v_pages, tables, lengths, layer)
+    check_args(q, k_pages, v_pages, tables, lengths, layer)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, tables, lengths,
                                    layer)

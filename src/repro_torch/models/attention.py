@@ -1,11 +1,13 @@
-"""Attention: GQA projections and chunked softmax attention (prefill path).
+"""Attention: GQA projections, chunked softmax attention (prefill), and the
+dense one-token decode against a slot-layout KV cache (the speculative
+draft's path).
 
 ``sdpa`` is plain PyTorch — einsum, softmax — in the JAX package's order of
 operations (``repro.models.attention.sdpa``): q is scaled in the compute
 dtype before the QK product, the scores are cast to f32 after it, the mask
 is an additive ``NEG_INF`` bias, and the probabilities are cast back to the
-compute dtype before the PV product. Decode attention does not come through
-here: it walks the block table in :mod:`repro_torch.kernels`.
+compute dtype before the PV product. Paged decode attention does not come
+through here: it walks the block table in :mod:`repro_torch.kernels`.
 """
 from __future__ import annotations
 
@@ -44,7 +46,9 @@ def sdpa(q, k, v, *, q_positions, k_positions, causal: bool,
 
     q: [B, Sq, H, Dh];  k/v: [B, Skv, Hkv, Dh]
     q_positions [Sq], k_positions [Skv] — absolute positions for masking.
-    kv_len: optional count of valid cache slots.
+    kv_len: optional count of valid cache slots, one for the batch or a
+    ``[B]`` tensor, one per row of the batch (slots decoding at their own
+    positions).
     Query rows are processed ``chunk`` at a time so the score matrix never
     holds more than ``chunk`` rows; each row's arithmetic is the same.
     """
@@ -53,19 +57,23 @@ def sdpa(q, k, v, *, q_positions, k_positions, causal: bool,
     G = H // Hkv
     scale = Dh ** -0.5
     qg = (q * scale).reshape(B, Sq, Hkv, G, Dh)
+    kv_ok = None
+    if kv_len is not None:
+        kv_ok = (torch.arange(Skv, device=q.device)[None, :]
+                 < torch.as_tensor(kv_len, device=q.device).reshape(-1, 1))
 
     def block(qb, qpos):
         s = torch.einsum("bchgd,bkhd->bchgk", qb, k).float()
-        valid = torch.ones((qpos.shape[0], Skv), dtype=torch.bool,
+        valid = torch.ones((1, qpos.shape[0], Skv), dtype=torch.bool,
                            device=q.device)
         if causal:
             valid &= k_positions[None, :] <= qpos[:, None]
         if window is not None:
             valid &= k_positions[None, :] > qpos[:, None] - window
-        if kv_len is not None:
-            valid &= (torch.arange(Skv, device=q.device) < kv_len)[None, :]
+        if kv_ok is not None:
+            valid = valid & kv_ok[:, None, :]          # [1 or B, C, Skv]
         bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
-        s = s + bias[None, :, None, None, :]
+        s = s + bias[:, :, None, None, :]
         p = torch.softmax(s, dim=-1).to(qb.dtype)
         return torch.einsum("bchgk,bkhd->bchgd", p, v)
 
@@ -84,3 +92,45 @@ def self_attention(cfg, p, x, positions, *, causal=True, window=None,
                causal=causal, window=window, chunk=chunk)
     B, S = x.shape[:2]
     return dense(p["wo"], out.reshape(B, S, -1), cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense KV cache: one-token decode per slot
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg, batch: int, capacity: int, *, device, dtype=None):
+    shape = (batch, capacity, cfg.n_kv_heads, cfg.head_dim)
+    dt = dtype or cfg.dtype
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def decode_self_attention(cfg, p, x, cache, idx):
+    """One-token decode for every slot at its own position, full attention.
+
+    x: [B, 1, D]; cache k/v [B, C, Hkv, Dh], written in place; idx: [B]
+    absolute position of each slot's new token. Returns out [B, 1, D].
+
+    The JAX package vmaps this over slots with a scalar ``idx``; here the
+    slots are one batch. The new K/V land at ``min(idx, C - 1)``: JAX's
+    ``dynamic_update_slice`` clamps an out-of-range start the same way, which
+    a speculative draft reaches when it decodes past a request's budget.
+    RoPE takes the unclamped position; slot ``i`` attends its first
+    ``min(idx + 1, C)`` cache positions.
+    """
+    B = x.shape[0]
+    q, k_new, v_new = qkv(cfg, p, x)
+    pos = idx[:, None]                                     # [B, 1]
+    q = rope(q, pos, cfg.rope_theta)
+    k_new = rope(k_new, pos, cfg.rope_theta)
+    C = cache["k"].shape[1]
+    rows = torch.arange(B, device=x.device)
+    at = torch.clamp(idx, max=C - 1).long()
+    cache["k"][rows, at] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, at] = v_new[:, 0].to(cache["v"].dtype)
+    zeros = torch.zeros((C,), dtype=torch.int32, device=x.device)
+    # RoPE is baked into the cached keys, so the mask is slot validity only
+    out = sdpa(q, cache["k"].to(cfg.dtype), cache["v"].to(cfg.dtype),
+               q_positions=zeros[:1], k_positions=zeros, causal=False,
+               window=None, kv_len=torch.clamp(idx + 1, max=C))
+    return dense(p["wo"], out.reshape(B, 1, -1), cfg.dtype)

@@ -1,9 +1,10 @@
-"""Block-native paged decode step for the dense family.
+"""Block-native paged decode and verify steps for the dense family.
 
-Per layer, the new token's K/V are written straight into each slot's tail
-block, then attention walks the block table itself through ``attend`` (the
-CUDA kernel on the card, its plain version on the CPU). Everything outside
-attention — norms, QKV/output projections, the MLP — is batched over slots.
+Per layer, the new tokens' K/V are written straight into each slot's tail
+block(s), then attention walks the block table itself through ``attend``
+(the CUDA kernel on the card, its plain version on the CPU). Everything
+outside attention — norms, QKV/output projections, the MLP — is batched
+over slots and window rows. Decode is the one-token window of the verify.
 
 The pool is ``{"k", "v"}`` of layout ``[num_blocks + 1, block_size, L, Hkv,
 Dh]``. Where the JAX package returns a new pool from a jitted function with
@@ -21,6 +22,22 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_norm, dense, embed, mlp, rope,
                                        unembed)
 from repro_torch.models.transformer import layer_params
+
+
+def scatter_tokens(pool_data, writes, blk, off):
+    """Multi-token tail append, in place: write ``q`` positions for every
+    slot at ``(blk[i, j], off[i, j])`` in one indexed write per tensor.
+
+    writes: ``{"kv": {"k", "v"}}`` leaves ``[B, q, *rest]`` for pool leaves
+    ``[num_blocks + 1, block_size, *rest]`` (a view of one layer of the
+    pool takes one layer's K/V); blk/off from
+    :func:`repro_torch.serve.batch.tail_targets_multi`, so a live slot's
+    in-range coordinates are distinct and everything else goes to the trash
+    block (where colliding writes are all garbage)."""
+    blk, off = blk.long(), off.long()
+    for name, pool in pool_data["kv"].items():
+        pool[blk, off] = writes["kv"][name].to(pool.dtype)
+    return pool_data
 
 
 def paged_decode_step(cfg: ModelConfig, params, tok, pool_kv, tables, blk,
@@ -41,26 +58,59 @@ def paged_decode_step(cfg: ModelConfig, params, tok, pool_kv, tables, blk,
     Returns ``(logits [B, V], pool_kv)``: the new K/V land in the tail block
     first, then attention covers positions ``< idx + 1``.
     """
+    def attend_one(q, k_pages, v_pages, tables, lengths, layer):
+        return attend(q[:, 0].contiguous(), k_pages, v_pages, tables,
+                      lengths, layer)[:, None]
+
+    logits, pool_kv = paged_verify_step(
+        cfg, params, tok[:, None], pool_kv, tables, blk[:, None],
+        off[:, None], positions[:, None], lengths, attend=attend_one)
+    return logits[:, -1], pool_kv
+
+
+def paged_verify_step(cfg: ModelConfig, params, toks, pool_kv, tables, blks,
+                      offs, positions, lengths, *, attend):
+    """Multi-token verify for speculative decoding: append a window of Q
+    tokens to each slot's tail block(s) and attend them causally through the
+    block table, all slots and rows in one batch.
+
+    toks: [B, Q] int32 — per slot, the current token followed by Q - 1 draft
+    candidates; pool_kv: ``{"k", "v"}`` pools as in
+    :func:`paged_decode_step`, updated in place; blks/offs: [B, Q] write
+    coordinates for the window (:func:`repro_torch.serve.batch.
+    tail_targets_multi` — dead slots and positions past the table's
+    coverage already routed to the trash block); positions: [B, Q] absolute
+    positions (``idx .. idx + Q - 1`` live); lengths: [B] valid KV count
+    after ALL Q appends (``idx + Q`` live, 0 dead).
+
+    ``attend(q [B, Q, H, Dh], k_pages, v_pages, tables, lengths, layer)`` is
+    the multi-token paged attention (row ``r`` masks to positions
+    ``< lengths - (Q - 1 - r)``: write-then-read causal over the window).
+
+    Returns ``(logits [B, Q, V], pool_kv)``: row ``r``'s argmax is the
+    target model's greedy continuation after ``toks[:, :r + 1]``. Rejected
+    candidates leave garbage K/V past the accepted length, which the next
+    window overwrites before any row can read it. The trash block may take
+    several writes to one position (dead slots, positions past coverage);
+    only garbage lands there.
+    """
     if cfg.family != "dense":
         raise NotImplementedError(
             f"paged decode for family={cfg.family!r}: the port has the dense "
             "branch only (ROADMAP.md, queue 1, remaining model families)")
-    B = tok.shape[0]
-    x = embed(cfg, params["embed"], tok[:, None])          # [B, 1, D]
-    pos = positions[:, None]                               # [B, 1]
+    B, Q = toks.shape
+    x = embed(cfg, params["embed"], toks)                  # [B, Q, D]
     pk, pv = pool_kv["k"], pool_kv["v"]
-    blk, off = blk.long(), off.long()
     for layer in range(cfg.n_layers):
         lp = layer_params(params["layers"], layer)
         hn = apply_norm(cfg, lp["norm1"], x)
-        q, k, v = qkv(cfg, lp["attn"], hn)                 # [B,1,H/Hkv,Dh]
-        q = rope(q, pos, cfg.rope_theta)
-        k = rope(k, pos, cfg.rope_theta)
-        pk[blk, off, layer] = k[:, 0].to(pk.dtype)
-        pv[blk, off, layer] = v[:, 0].to(pv.dtype)
-        a = attend(q[:, 0].contiguous(), pk, pv, tables, lengths, layer)
-        x = x + dense(lp["attn"]["wo"], a.reshape(B, 1, -1), cfg.dtype)
+        q, k, v = qkv(cfg, lp["attn"], hn)                 # [B,Q,H/Hkv,Dh]
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        scatter_tokens({"kv": {"k": pk[:, :, layer], "v": pv[:, :, layer]}},
+                       {"kv": {"k": k, "v": v}}, blks, offs)
+        a = attend(q.contiguous(), pk, pv, tables, lengths, layer)
+        x = x + dense(lp["attn"]["wo"], a.reshape(B, Q, -1), cfg.dtype)
         x = x + mlp(cfg, lp["mlp"], apply_norm(cfg, lp["norm2"], x))
     x = apply_norm(cfg, params["final_norm"], x)
-    logits = unembed(cfg, params["embed"], x)
-    return logits[:, -1], pool_kv
+    return unembed(cfg, params["embed"], x), pool_kv

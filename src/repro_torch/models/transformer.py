@@ -4,7 +4,9 @@
   weights ``[L, ...]`` (the JAX package's tree, leaf for leaf);
 * ``prefill(cfg, params, tokens, capacity)`` — full-prompt forward that also
   materializes the decode cache;
-* ``init_cache(cfg, batch, capacity, device=)`` — an empty cache.
+* ``init_cache(cfg, batch, capacity, device=)`` — an empty cache;
+* ``decode_step(cfg, params, tokens, cache)`` — one token per slot against
+  that cache (the speculative draft's step).
 
 The JAX package scans over the stacked layers; here a Python loop walks them
 (:func:`layer_params` gives layer ``i``'s views). Only the ``dense`` family
@@ -17,7 +19,8 @@ from typing import Any
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import init_attn, qkv, sdpa
+from repro_torch.models.attention import (decode_self_attention, init_attn,
+                                         init_kv_cache, qkv, sdpa)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_norm, dense, embed, init_embed,
                                        init_mlp, make_norm_params, mlp, rope,
@@ -145,8 +148,37 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, *,
     """Empty decode cache ``{"kv": {"k", "v"}, "idx": 0}`` with k/v
     ``[L, batch, capacity, Hkv, Dh]`` in ``cfg.dtype``."""
     require_dense(cfg)
-    dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, capacity, cfg.n_kv_heads, cfg.head_dim)
-    return {"kv": {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                   "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)},
+    kv = init_kv_cache(cfg, cfg.n_layers * batch, capacity,
+                       device=resolve_device(device))
+    return {"kv": {name: t.reshape(cfg.n_layers, batch, *t.shape[1:])
+                   for name, t in kv.items()},
             "idx": 0}
+
+
+# ---------------------------------------------------------------------------
+# Decode: one token per slot against the dense cache
+# ---------------------------------------------------------------------------
+
+def decode_step(cfg: ModelConfig, params: Params, tokens, cache):
+    """tokens [B, 1] -> (logits [B, 1, V], cache).
+
+    ``cache["idx"]`` is the absolute position of this token: one for the
+    batch, or a ``[B]`` tensor, one per slot (the slot layout of
+    :func:`repro_torch.serve.batch.init_slot_cache`). The K/V leaves are
+    written in place; the returned cache holds them and ``idx + 1``.
+    """
+    require_dense(cfg)
+    B = tokens.shape[0]
+    x = embed(cfg, params["embed"], tokens)
+    idx = torch.as_tensor(cache["idx"], dtype=torch.int32,
+                          device=tokens.device).reshape(-1).expand(B)
+    kv = cache["kv"]
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        hn = apply_norm(cfg, lp["norm1"], x)
+        x = x + decode_self_attention(
+            cfg, lp["attn"], hn, {"k": kv["k"][i], "v": kv["v"][i]}, idx)
+        x = x + mlp(cfg, lp["mlp"], apply_norm(cfg, lp["norm2"], x))
+    x = apply_norm(cfg, params["final_norm"], x)
+    return unembed(cfg, params["embed"], x), {"kv": kv,
+                                              "idx": cache["idx"] + 1}

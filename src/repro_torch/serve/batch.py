@@ -8,13 +8,18 @@ to physical blocks, so a request only ever occupies ``ceil(tokens /
 block_size)`` blocks.
 
 The device-side ops (:func:`write_prefill`, :func:`tail_targets`,
-:func:`copy_block`) are PyTorch and write the pool in place where the JAX
-package returns a new one. The block *allocator* (:class:`BlockAllocator`)
-and the shared-prefix index (:class:`PrefixIndex`) are host-side numpy,
-copied from ``repro.serve.batch``: refcounted blocks let requests that share
-a prompt prefix alias the same physical block from several slots' tables,
-and :meth:`BlockAllocator.fork_for_write` forks a shared tail block into a
-fresh exclusive one before any slot appends to it.
+:func:`tail_targets_multi`, :func:`scatter_tokens` — defined beside the
+verify step in :mod:`repro_torch.models.paged` —, :func:`copy_block`) are
+PyTorch and write the pool in place where the JAX package returns a new
+one. The speculative draft keeps a dense *slot layout* instead
+(:func:`init_slot_cache`, :func:`write_slot`): k/v ``[L, max_batch,
+capacity, Hkv, Dh]`` with a per-slot ``idx`` vector. The block *allocator*
+(:class:`BlockAllocator`) and the shared-prefix index
+(:class:`PrefixIndex`) are host-side numpy, copied from
+``repro.serve.batch``: refcounted blocks let requests that share a prompt
+prefix alias the same physical block from several slots' tables, and
+:meth:`BlockAllocator.fork_for_write` forks a shared tail block into a fresh
+exclusive one before any slot appends to it.
 
 Only the attention-KV layout ``{"kv": {"k", "v"}}`` is paged; the JAX
 package's generic axis discovery (``cache_batch_axes`` /
@@ -29,6 +34,10 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
+# scatter_tokens lives beside the verify step that writes with it; the JAX
+# package keeps it here
+from repro_torch.models.paged import scatter_tokens  # noqa: F401
+from repro_torch.models.transformer import init_cache
 
 
 def write_prefill(pool_data, request_cache, table, *, block_size: int):
@@ -62,6 +71,27 @@ def tail_targets(tables, idx, live, block_size: int, trash: int):
     return blk, idx % block_size
 
 
+def tail_targets_multi(tables, idx, live, q: int, block_size: int,
+                       trash: int):
+    """Write coordinates for a window of ``q`` tokens at positions
+    ``idx .. idx + q - 1`` per slot: ``(blk [B, q], off [B, q])``.
+
+    The window may span a block boundary: each position resolves its own
+    page. Dead slots and positions whose page the table does not cover
+    (speculative overshoot past the ensured or clamped width, or past
+    capacity) go to the trash block; unallocated in-range pages land there
+    too, because table padding points at it. ``q = 1`` is
+    :func:`tail_targets`."""
+    B, max_blocks = tables.shape
+    pos = idx[:, None] + torch.arange(q, device=tables.device,
+                                      dtype=idx.dtype)           # [B, q]
+    page = (pos // block_size).long()
+    ok = live[:, None] & (page < max_blocks)
+    gathered = torch.gather(tables, 1, torch.clamp(page, 0, max_blocks - 1))
+    return torch.where(ok, gathered, torch.full_like(gathered, trash)), \
+        pos % block_size
+
+
 def copy_block(pool_data, src: int, dst: int):
     """Copy-on-write fork, device side: duplicate physical block ``src`` into
     ``dst`` on K and V, in place. The engine calls this right after
@@ -71,6 +101,28 @@ def copy_block(pool_data, src: int, dst: int):
     for pool in pool_data["kv"].values():
         pool[dst].copy_(pool[src])
     return pool_data
+
+
+def init_slot_cache(cfg: ModelConfig, max_batch: int, capacity: int, *,
+                    device):
+    """Empty slot-layout cache: :func:`repro_torch.models.init_cache` for
+    ``max_batch`` streams, k/v ``[L, max_batch, capacity, Hkv, Dh]``, with
+    ``idx`` a per-slot ``[max_batch]`` int32 vector."""
+    cache = init_cache(cfg, max_batch, capacity, device=device)
+    cache["idx"] = torch.zeros((max_batch,), dtype=torch.int32,
+                               device=device)
+    return cache
+
+
+def write_slot(slot_cache, request_cache, i: int):
+    """Insert a batch-1 prefilled cache (k/v ``[L, 1, capacity, Hkv, Dh]``,
+    scalar ``idx``) into slot ``i`` of the slot-layout cache, in place: the
+    whole capacity row is overwritten, so nothing of the slot's previous
+    request survives."""
+    for name, leaf in slot_cache["kv"].items():
+        leaf[:, i] = request_cache["kv"][name][:, 0].to(leaf.dtype)
+    slot_cache["idx"][i] = int(request_cache["idx"])
+    return slot_cache
 
 
 class BlockAllocator:
@@ -460,6 +512,9 @@ class BlockPool:
         """Host-side CoW fork; the caller MUST mirror a non-None return on
         ``.data`` with :func:`copy_block` before the next decode chunk."""
         return self.alloc.fork_for_write(slot, page)
+
+    def trim(self, slot: int, n_tokens: int) -> int:
+        return self.alloc.trim(slot, n_tokens)
 
     def release(self, slot: int) -> None:
         self.alloc.release(slot)

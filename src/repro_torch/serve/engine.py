@@ -17,12 +17,20 @@ once, admission counts resident shared blocks as zero additional need, an
 exact whole-prompt hit skips prefill, and a shared tail block is forked
 (copy-on-write) before any slot's append writes to it.
 
+With ``speculate=SpecConfig(draft_cfg, draft_params, k)`` each decode
+chunk runs speculative rounds instead (:mod:`repro_torch.serve.spec`): a
+dense draft with its own slot-layout cache, prefilled at every admission,
+proposes ``k`` tokens, the target verifies the ``k + 1``-token window
+through the block table with the CUDA kernel
+:func:`repro_torch.kernels.paged_attention_multi`, and after each chunk the
+blocks past every slot's accepted length are trimmed back to the pool.
+
 ``run()`` drains the queue to ``{rid: tokens}``; ``stream()`` yields
 ``(rid, delta_tokens, done)`` at admission and at every chunk boundary.
 
 Not ported yet (``ROADMAP.md``): the continuous and cohort modes, the
-``"reference"`` and ``"pallas"`` read paths, speculative decoding and
-pow2 prefill buckets. Asking for them raises ``NotImplementedError``.
+``"reference"`` and ``"pallas"`` read paths and pow2 prefill buckets.
+Asking for them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,11 +44,32 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import require_dense, tree_to
 from repro_torch.obs.recorder import NullRecorder
 from repro_torch.serve.batch import (BlockPool, PrefixIndex, copy_block,
-                                     write_prefill)
+                                     init_slot_cache, write_prefill,
+                                     write_slot)
 from repro_torch.serve.scheduler import Request, SlotScheduler
+from repro_torch.serve.spec import SpecConfig, make_spec_decode
 from repro_torch.serve.steps import make_paged_kernel_decode, make_prefill_step
 
 KV_IMPLS = ("auto", "kernel")
+
+
+def _check_draft(cfg: ModelConfig, dcfg: ModelConfig) -> None:
+    """The JAX engine's checks on a speculative draft, with its messages;
+    then the port's own limit: the draft runs the dense slot decode."""
+    if dcfg.vocab != cfg.vocab:
+        raise ValueError("draft vocab must match the target's: "
+                         f"{dcfg.vocab} != {cfg.vocab}")
+    # every round rewinds the draft by overwriting its cache ``idx``: sound
+    # only when all decode-time state is position-indexed KV — recurrent
+    # state folds rejected drafts in, and a window ring cache may already
+    # have evicted the rewind target
+    if dcfg.window is not None or dcfg.family not in (
+            "dense", "vlm", "moe", "audio"):
+        raise ValueError(
+            "speculative draft needs a full-attention KV family "
+            "(rewind = idx overwrite); got "
+            f"family={dcfg.family!r} window={dcfg.window!r}")
+    require_dense(dcfg)
 
 
 class ServeEngine:
@@ -49,8 +78,10 @@ class ServeEngine:
                  mode: str = "paged", decode_chunk: int = 8,
                  block_size: int = 16, num_blocks: int | None = None,
                  kv_impl: str = "auto", share_prefix: bool = True,
-                 speculate=None, recorder=None,
+                 speculate: SpecConfig | None = None, recorder=None,
                  device: str | torch.device = "cuda"):
+        if speculate is not None and mode != "paged":
+            raise ValueError("speculate=SpecConfig(...) requires mode='paged'")
         if mode != "paged":
             raise NotImplementedError(
                 f"mode={mode!r}: the port serves mode='paged' only "
@@ -60,11 +91,9 @@ class ServeEngine:
                 f"kv_impl={kv_impl!r}: the port has the 'kernel' read path "
                 "only, which 'auto' resolves to (ROADMAP.md, queue 1, "
                 "paged-mode gaps)")
-        if speculate is not None:
-            raise NotImplementedError(
-                "speculate=: speculative decoding is not ported yet "
-                "(ROADMAP.md, queue 1, speculative decoding)")
         require_dense(cfg)
+        if speculate is not None:
+            _check_draft(cfg, speculate.draft_cfg)
         self.device = resolve_device(device)
         # host-side only: the recorder sees counters and spans at the chunk
         # boundaries the loop already crosses. Only the no-op recorder is
@@ -89,6 +118,23 @@ class ServeEngine:
                               capacity=capacity, device=self.device)
         self._paged_decode = make_paged_kernel_decode(
             cfg, block_size, decode_chunk, eos_id)
+        self.spec = speculate
+        # positions one dispatch can advance a slot: decode_chunk serially,
+        # or rounds x (k + 1) verify rows under speculation. Emitted rows
+        # only ever read positions below idx + adv, so this is also the
+        # pre-chunk ensure horizon; window writes past it go to trash.
+        self._adv = decode_chunk
+        if speculate is not None:
+            dcfg = speculate.draft_cfg
+            rounds = speculate.rounds_for(decode_chunk)
+            self._adv = rounds * (speculate.k + 1)
+            self._draft_params = tree_to(speculate.draft_params,
+                                         device=self.device,
+                                         dtype=dcfg.dtype)
+            self._draft_prefill = make_prefill_step(dcfg, capacity)
+            self._spec_decode = make_spec_decode(
+                cfg, dcfg, block_size, speculate.k, rounds, eos_id)
+        self._dcache = None  # the draft's slot cache, made per drain
         self.prefix = PrefixIndex(self.pool.alloc) if share_prefix else None
         self._next_rid = 0
         self._streamed: dict[int, int] = {}
@@ -170,6 +216,13 @@ class ServeEngine:
                  "prefix_hits": 0, "cow_forks": 0, "prefill_tokens": 0,
                  "prefill_s": 0.0, "peak_blocks_in_use": 0,
                  "peak_shared_blocks": 0}
+        if self.spec is not None:
+            # spec_rounds: slot-rounds that proposed (live at the round's
+            # start); spec_full_rounds: those that accepted all k drafts
+            stats.update(spec_proposed=0, spec_accepted=0, draft_prefills=0,
+                         spec_rounds=0, spec_full_rounds=0)
+            self._dcache = init_slot_cache(self.spec.draft_cfg, B,
+                                           self.capacity, device=self.device)
 
         def finish(i: int) -> Request:
             req = sched.release(i)
@@ -280,6 +333,18 @@ class ServeEngine:
                                   pool.tables[i, :pool.owned(i)], first)
             tok[i], idx[i] = first, len(req.prompt)
             live[i], remaining[i] = True, req.remaining
+            if self.spec is not None:
+                # draft prefill runs even on exact prefix hits: the draft's
+                # dense cache has no prefix index to alias from, and a
+                # preemption restart rebuilds it the same way
+                with self.recorder.span("draft_prefill", rid=req.rid,
+                                        prompt_len=len(req.prompt)):
+                    tokens = torch.as_tensor(req.prompt[None],
+                                             device=self.device)
+                    _, d_cache = self._draft_prefill(self._draft_params,
+                                                     {"tokens": tokens})
+                    write_slot(self._dcache, d_cache, i)
+                stats["draft_prefills"] += 1
             yield from self._emit([req])
 
     def _ensure_chunk_blocks(self, stats, preempt, idx, live, remaining):
@@ -304,7 +369,7 @@ class ServeEngine:
                 preempt(sched.youngest())   # may drop the shared ref
             if not live[i]:
                 continue   # preempted itself while hunting fork room
-            need = int(idx[i]) + min(self.decode_chunk, int(remaining[i]))
+            need = int(idx[i]) + min(self._adv, int(remaining[i]))
             while not pool.ensure(i, need):
                 victim = sched.youngest()
                 if victim == i and len(sched.occupied()) == 1:
@@ -339,32 +404,57 @@ class ServeEngine:
             # JAX engine buckets it
             hw = min(1 << max(pool.high_water() - 1, 0).bit_length(),
                      pool.max_blocks)
-            with self.recorder.span("decode_chunk", steps=self.decode_chunk):
-                out = self._paged_decode(
-                    self.params, torch.as_tensor(tok, device=dev),
-                    pool.data,
-                    torch.as_tensor(pool.tables[:, :hw].copy(), device=dev),
-                    torch.as_tensor(idx, device=dev),
-                    torch.as_tensor(live, device=dev),
-                    torch.as_tensor(remaining, device=dev))
-                (tok_d, pool.data, idx_d, live_d, remaining_d, tokens,
-                 emitted) = out
-                # one host read per chunk: the chunk's tokens, emit masks
-                # and the slots' carried state, packed into one int32 array
-                c = self.decode_chunk
+            with self.recorder.span("decode_chunk", steps=self._adv):
+                args = (torch.as_tensor(tok, device=dev), pool.data,
+                        torch.as_tensor(pool.tables[:, :hw].copy(),
+                                        device=dev),
+                        torch.as_tensor(idx, device=dev),
+                        torch.as_tensor(live, device=dev),
+                        torch.as_tensor(remaining, device=dev))
+                if self.spec is None:
+                    (tok_d, pool.data, idx_d, live_d, remaining_d, tokens,
+                     emitted) = self._paged_decode(self.params, *args)
+                    counts = []
+                else:
+                    (tok_d, pool.data, idx_d, live_d, remaining_d, tokens,
+                     emitted, self._dcache, proposed,
+                     accepted) = self._spec_decode(
+                        self.params, self._draft_params, *args,
+                        self._dcache)
+                    counts = [proposed, accepted]
+                # one host read per chunk: the chunk's tokens, emit masks,
+                # the slots' carried state and the draft counts, packed
+                # into one int32 array
+                c = tokens.shape[0]
                 host = torch.cat([
                     tokens, emitted.to(torch.int32),
                     torch.stack([tok_d, idx_d, live_d.to(torch.int32),
-                                 remaining_d])]).cpu().numpy()
+                                 remaining_d]), *counts]).cpu().numpy()
                 tokens, emitted = host[:c], host[c:2 * c].astype(bool)
             # in place: finish()/preempt() close over these same arrays
-            tok[:], idx[:], live[:], remaining[:] = host[2 * c:]
+            tok[:], idx[:], live[:], remaining[:] = host[2 * c:2 * c + 4]
+            if self.spec is not None:
+                proposed, accepted = np.split(host[2 * c + 4:], 2)
+                n_p, n_a = int(proposed.sum()), int(accepted.sum())
+                stats["spec_proposed"] += n_p
+                stats["spec_accepted"] += n_a
+                stats["spec_rounds"] += int((proposed > 0).sum())
+                stats["spec_full_rounds"] += int(
+                    ((proposed > 0) & (accepted == proposed)).sum())
+                self.recorder.counter_add("serve_spec_proposed", n_p)
+                self.recorder.counter_add("serve_spec_accepted", n_a)
             stats["decode_dispatches"] += 1
-            stats["decode_steps"] += self.decode_chunk
+            stats["decode_steps"] += self._adv
             stats["emitted_tokens"] += int(emitted.sum())
             reqs = [r for _, r in sched.occupied()]
             for i in sched.record_decode(tokens, emitted, self.eos_id):
                 finish(i)
+            if self.spec is not None:
+                # speculative rewind: return the ensure headroom the verify
+                # did not fill (rejected-window tail blocks), so a partial
+                # acceptance never strands pool pages across chunks
+                for i, _ in sched.occupied():
+                    pool.trim(i, int(idx[i]))
             yield from self._emit(reqs)
 
     # -- entry points --------------------------------------------------------

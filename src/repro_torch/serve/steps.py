@@ -1,4 +1,5 @@
-"""Serving step functions: prefill and the paged decode chunk.
+"""Serving step functions: prefill, the dense slot decode step (the
+speculative draft's) and the paged decode chunk.
 
 :func:`make_paged_kernel_decode` is the counterpart of the JAX package's
 ``make_paged_kernel_decode``: ``decode_chunk`` greedy tokens for every slot
@@ -18,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import paged_attention
-from repro_torch.models import prefill
+from repro_torch.models import decode_step, prefill
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.paged import paged_decode_step
 from repro_torch.serve.batch import tail_targets
@@ -28,6 +29,18 @@ def make_prefill_step(cfg: ModelConfig, capacity: int):
     def step(params, batch):
         return prefill(cfg, params, batch["tokens"], capacity,
                        length=batch.get("length"))
+    return step
+
+
+def make_slot_decode_step(cfg: ModelConfig):
+    """Greedy one-token decode of every slot of a slot-layout cache
+    (:func:`repro_torch.serve.batch.init_slot_cache`): ``(params, tok [B],
+    cache) -> (next_tok [B], cache)``, each slot at its own
+    ``cache["idx"][slot]``, the K/V written in place. The JAX package vmaps
+    ``decode_step`` over the slots; here they are one batch."""
+    def step(params, tok, cache):
+        logits, cache = decode_step(cfg, params, tok[:, None], cache)
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), cache
     return step
 
 

@@ -3,7 +3,8 @@
 ``params_from_jax`` turns the JAX parameter pytree — converted to numpy by
 the caller, e.g. ``jax.tree.map(np.asarray, params)`` — into the port's
 tree: ``embed.table``, the layer-stacked ``layers`` with leading axis L, and
-``final_norm``. The trees match leaf for leaf, so both packages compute
+``final_norm``. ``truncate_params`` cuts such a tree to its first layers
+(a speculative draft). The trees match leaf for leaf, so both packages compute
 with identical weights. The port never imports JAX; only the numpy tree
 crosses over.
 """
@@ -31,3 +32,18 @@ def params_from_jax(tree, *, device: str | torch.device = "cuda"):
         return torch.from_numpy(np.array(t)).to(dev)
 
     return conv(tree)
+
+
+def truncate_params(params, n_layers: int):
+    """The first ``n_layers`` layers of a dense parameter tree, with its
+    ``embed`` and ``final_norm``: a truncated self-speculation draft (the
+    target's own early layers propose, the whole target verifies). The
+    leaves are views of ``params``; the JAX package's serving benchmark
+    slices its draft the same way."""
+    def head(t):
+        if isinstance(t, dict):
+            return {k: head(v) for k, v in t.items()}
+        return t[:n_layers]
+
+    return {"embed": params["embed"], "final_norm": params["final_norm"],
+            "layers": head(params["layers"])}

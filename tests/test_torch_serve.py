@@ -240,6 +240,6 @@ def test_stream_deltas_and_unported_options(model):
     with pytest.raises(ValueError, match="cache positions"):
         eng.submit(np.arange(30), 5)
     for kw in ({"mode": "continuous"}, {"kv_impl": "reference"},
-               {"kv_impl": "pallas"}, {"speculate": object()}):
+               {"kv_impl": "pallas"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             repro_torch.serve.ServeEngine(tcfg, tparams, device="cpu", **kw)

@@ -57,3 +57,26 @@ def tail_lengths(bs):
     """Every tail-offset class: 1 position, bs-1, exactly bs, bs+1, a dead
     slot, and a long slot ending mid-page."""
     return [1, bs - 1, bs, bs + 1, 0, 3 * bs + bs // 2]
+
+
+def multi_case(seed, *, lengths, Q, H, Hkv, Dh, L, bs, n_pages=None,
+               alias=False, cover=None):
+    """A verify window: q ``[B, Q, H, Dh]`` over :func:`paged_case`'s pool
+    and tables. ``cover`` narrows the tables to that many pages, so the last
+    rows of a window longer than ``cover * bs`` run past the table (the
+    engine's trash-routed overshoot)."""
+    _, kp, vp, tables, lens = paged_case(seed, B_lengths=lengths, H=H,
+                                         Hkv=Hkv, Dh=Dh, L=L, bs=bs,
+                                         n_pages=n_pages, alias=alias)
+    q = np.random.default_rng(seed + 1).standard_normal(
+        (len(lengths), Q, H, Dh), np.float32)
+    if cover is not None:
+        tables = np.ascontiguousarray(tables[:, :cover])
+    return q, kp, vp, tables, lens
+
+
+def window_lengths(Q, bs):
+    """Windows ending at every tail-offset class: exactly Q (row 0 sees one
+    position), a window crossing a page boundary, ending on one, a dead
+    slot, and a long slot ending mid-page."""
+    return [Q, bs + Q // 2 + 1, 2 * bs, 0, 3 * bs + bs // 2]
