@@ -5,24 +5,25 @@
 Phases, in order; any failure exits non-zero (no phase is caught):
 
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
-2. build every CUDA kernel of the serving path from ``src/repro_torch/
+2. build every CUDA kernel of the serving paths from ``src/repro_torch/
    kernels/csrc`` with ``nvcc`` (sm_90a; one ``nvcc`` per source, all
    started together), timed;
-3. hold each kernel against its plain PyTorch version at the serving path's
-   shapes (bf16) and at a small f32 shape — dead slots, tail pages and
-   aliased pages included — and time both with CUDA events;
+3. hold the paged decode kernel against its plain PyTorch version at the
+   serving path's shapes (bf16) and at a small f32 shape — dead slots, tail
+   pages and aliased pages included — and time both with CUDA events;
 4. serve full-width ``smollm-360m`` (random weights from a fixed
    ``torch.Generator``) through the paged ``ServeEngine``: 16 seeded
    requests, prompts of 17–300 tokens (two share a 128-token prefix),
    ``max_new`` 32, ``max_batch`` 8, ``block_size`` 16, and a pool tight
-   enough to force preemption. The kernel launch count must equal
-   ``n_layers`` x the decode steps run;
+   enough to force preemption. The decode kernel's launch count must equal
+   ``n_layers`` x the decode steps run, and the flash-attention kernel's
+   ``n_layers`` x the prefills;
 5. replay the served streams teacher-forced through the kernel and through
    the plain attention, and compare the per-step logits;
 6. profile one more short drain with ``torch.profiler``: the card's busy
    share of the wall time and the kernels that took it; the trace must
-   show the decode kernel as often as its wrapper counted, and the window
-   kernel not at all;
+   show the decode and flash kernels as often as their wrappers counted,
+   and the window kernel and the scan not at all;
 7. speculative decoding: (a) hold the verify-window kernel against its
    plain version at the speculative path's shapes (bf16, windows crossing
    a page, a dead slot, rows past the table's coverage, aliased pages), at
@@ -33,21 +34,43 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    rather than overturn its early ones) with its own first two layers as
    the draft, k = 3, beside a non-speculative drain of the same target.
    The window kernel's launch count must equal ``n_layers`` x the verify
-   rounds run, the decode kernel must not launch, and some rounds must
+   rounds run (the flash kernel's, one per layer per target and draft
+   prefill), the decode kernel must not launch, and some rounds must
    accept every draft and some not. Streams that differ from the
    non-speculative ones are replayed teacher-forced through the window
    kernel and through the plain attention. A profiled speculative drain
-   must show the window kernel as often as its wrapper counted, and the
-   decode kernel not at all.
+   must show the window and flash kernels as often as their wrappers
+   counted, and the decode kernel not at all;
+8. hold the flash-attention kernel against its plain version at both
+   prefill shapes — (a) recurrentgemma-2b's: 10 query heads over one KV
+   head, Dh 256, a 2 300-token prompt, window 2 048; (b) smollm-360m's: 15
+   over 5, Dh 64, 300 tokens, causal — and at edge cases (a tail tile, S
+   below one tile, window 1, non-causal, f32); time each beside the plain
+   version and one ``scaled_dot_product_attention`` call, the library
+   yardstick, which is held to the plain version too (and, where a window
+   bites, shown to fail that limit without its window mask);
+9. hold the RG-LRU scan kernel against its plain version at ``[1, 2 300,
+   2 560]`` in bf16 and f32 and at an odd length, and time each;
+10. serve full-width ``recurrentgemma-2b`` (random bf16 weights from a fixed
+   ``torch.Generator``) through ``ServeEngine(mode="continuous")``: 8
+   seeded requests, 7 of 17–400 tokens and one of 2 300, past the local
+   window, ``max_new`` 16, ``max_batch`` 4, ``capacity`` 2 400. Each
+   prefill must launch the flash kernel once per attention layer (8) and
+   the scan once per recurrent layer (18), and nothing else. The streams
+   are replayed teacher-forced with both kernels and with both plain
+   versions, and a profiled drain must show both kernels under their own
+   names as often as their wrappers counted.
 
-Prints a ``{"kernels": [...]}`` line, then the card's name and power limit,
-and as its last line ``{"ok": true, "device": {...}}``. Needs a CUDA card
+Prints a ``{"kernels": [...]}`` line naming all four kernels, then the
+card's name and power limit, and as its last line ``{"ok": true,
+"device": {...}}``. Needs a CUDA card
 and the repository's ``src/`` beside this file.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -64,10 +87,13 @@ PROMPT_LENS = (17, 300)
 SHARED_PREFIX = 128
 CAPACITY = 336          # 21 blocks: the longest prompt plus 32 new tokens
 NUM_BLOCKS = 72         # less than 8 slots' prompts need: forces preemption
-KERNEL_SOURCES = ("paged_attention",)   # csrc/<name>.cu, one nvcc each
+# csrc/<name>.cu, one nvcc each, all started together
+KERNEL_SOURCES = ("paged_attention", "flash_attention", "rglru_scan")
 # each kernel wrapper's __global__ function, as a profiler trace names it
 KERNEL_SYMBOLS = {"paged_attention": "paged_attention_decode_kernel",
-                  "paged_attention_multi": "paged_attention_multi_kernel"}
+                  "paged_attention_multi": "paged_attention_multi_kernel",
+                  "flash_attention": "flash_attention_kernel",
+                  "rglru_scan": "rglru_scan_kernel"}
 # phase 7: truncated self-speculation. The target's layers past the first
 # SPEC_DRAFT_LAYERS are scaled by SPEC_DAMP (the JAX package's serving
 # benchmark builds its speculative pair the same way) and the draft is the
@@ -86,12 +112,41 @@ BF16_RTOL, BF16_ATOL = 2 ** -6, 1e-4
 # Teacher-forced replay, kernel vs plain attention: per step the two paths
 # differ by at most an ulp of each attention output (above), and 32 bf16
 # residual layers carry that into the logits (|logit| ~ 4 at this init,
-# where one bf16 ulp is 2**-6). The limit is 16 such ulps.
+# where one bf16 ulp is 2**-6). The limit is 16 such ulps. The hybrid
+# replay (phase 10) holds recurrentgemma-2b's 26 layers to the same limit:
+# its logits are of the same size (tied embeddings at d_model**-0.5), and
+# the scan's f32 carry departs from the plain bf16 carry by about an ulp of
+# h, since the decays a = u**(8 r), u in [0.43, 0.85], keep the recurrence's
+# memory to a few steps.
 TOL_REPLAY = 0.25
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and dense bf16 tensor-core peak
+# NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak and
+# the f32 peak outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# phases 8-10: continuous serving of full-width recurrentgemma-2b, whose
+# prefill runs the flash-attention and RG-LRU kernels. One prompt is longer
+# than the 2 048-position local window, so the window mask bites and the
+# prefill's ring of K/V is rolled.
+HYBRID_ARCH = "recurrentgemma-2b"
+HYB_REQUESTS, HYB_MAX_NEW, HYB_MAX_BATCH = 8, 16, 4
+HYB_PROMPT_LENS = (17, 400)
+HYB_LONG_PROMPT = 2300
+HYB_CAPACITY = 2400     # rings of min(2 400, local_window 2 048) positions
+# RG-LRU scan, bf16: the kernel carries h in f32, the plain version in bf16;
+# the limit is the JAX package's own for a bf16 recurrence against its f32
+# carry (tests/test_kernels.py:104). The kernel must also equal, bit for
+# bit, the plain version run on the inputs widened to f32 and rounded once.
+TOL_RGLRU_BF16 = 5e-2
+# The library yardstick against the plain version, bf16: its kernels round
+# the (unnormalised) probabilities to bf16, unit roundoff 2**-8, before the
+# PV product, so an output moves by at most 2**-8 sum_j p_j |v_j| beyond
+# the kernel's own limit (both round the output once). The limit is twice
+# that: the kernel's limit plus LIB_P_RTOL times the plain attention of
+# |v|, ~6e-3 at the rows of shape (a) that average ~2 000 keys. Phase 8
+# checks that a library call without the window mask fails it.
+LIB_P_RTOL = 2 ** -7
 
 
 def card_line() -> str:
@@ -251,11 +306,68 @@ def workload(vocab):
     return prompts
 
 
+def ptxas_report(logs) -> list[str]:
+    """One line per compiled kernel instantiation from ``nvcc -Xptxas -v``:
+    the kernel, its dtype and head dim (from the mangled name), then
+    ptxas's spill and register lines."""
+    out, label = [], None
+    for log in logs.values():
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                sym = next((k for k in KERNEL_SYMBOLS.values() if k in line),
+                           line)
+                dtype = "bf16" if "__nv_bfloat16" in line else "f32"
+                dh = re.search(r"Li(\d+)E", line)
+                label = f"{sym}<{dtype}{', ' + dh.group(1) if dh else ''}>"
+                out.append(label + ":")
+            elif label and ("registers" in line or "spill" in line):
+                out[-1] += " " + line.split(":", 1)[-1].strip() + ";"
+    return out
+
+
+def reset_counts():
+    """Set every kernel wrapper's launch count to 0."""
+    from repro_torch import kernels as K
+
+    for name in KERNEL_SYMBOLS:
+        getattr(K, name).launches = 0
+
+
+def read_counts() -> dict:
+    """Every kernel wrapper's launch count, by name."""
+    from repro_torch import kernels as K
+
+    return {name: getattr(K, name).launches for name in KERNEL_SYMBOLS}
+
+
+def drain(torch, eng, prompts, max_new):
+    """Submit ``prompts`` and run the engine to the end, with every kernel's
+    launch count set to 0 just before and read just after. Returns (streams,
+    metrics)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    results = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    streams = [results[r] for r in rids]
+    ttft = [eng.completed[r].first_token_s - eng.completed[r].submit_s
+            for r in rids]
+    tokens = sum(map(len, streams))
+    return streams, {"wall_s": wall, "tokens": tokens,
+                     "tokens_per_s": tokens / wall,
+                     "ttft_p50_ms": float(np.median(ttft)) * 1e3,
+                     "ttft_max_ms": float(np.max(ttft)) * 1e3,
+                     "counts": counts, "launches": counts["paged_attention"],
+                     "multi_launches": counts["paged_attention_multi"],
+                     "flash_launches": counts["flash_attention"],
+                     **eng.stats}
+
+
 def serve(torch, cfg, params, device, speculate=None):
     """Phase 4 (and 7b with ``speculate``): drive the paged engine; returns
-    (engine, prompts, streams, metrics). Both kernels' launch counts are
-    set to 0 just before the drain and read just after it."""
-    from repro_torch.kernels import paged_attention, paged_attention_multi
+    (engine, prompts, streams, metrics)."""
     from repro_torch.serve import ServeEngine
 
     eng = ServeEngine(cfg, params, capacity=CAPACITY, max_batch=MAX_BATCH,
@@ -263,25 +375,30 @@ def serve(torch, cfg, params, device, speculate=None):
                       decode_chunk=DECODE_CHUNK, speculate=speculate,
                       device=device)
     prompts = workload(cfg.vocab)
-    paged_attention.launches = paged_attention_multi.launches = 0
-    t0 = time.perf_counter()
-    rids = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
-    results = eng.run()
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = paged_attention.launches
-    multi_launches = paged_attention_multi.launches
-    streams = [results[r] for r in rids]
-    st = eng.stats
-    ttft = [eng.completed[r].first_token_s - eng.completed[r].submit_s
-            for r in rids]
-    metrics = {"wall_s": wall, "tokens": sum(map(len, streams)),
-               "tokens_per_s": sum(map(len, streams)) / wall,
-               "ttft_p50_ms": float(np.median(ttft)) * 1e3,
-               "ttft_max_ms": float(np.max(ttft)) * 1e3,
-               "launches": launches, "multi_launches": multi_launches, **st}
+    streams, metrics = drain(torch, eng, prompts, MAX_NEW)
     return eng, prompts, streams, metrics
+
+
+def check_counts(what, counts, want):
+    """Fail unless every kernel wrapper counted exactly ``want`` (0 where
+    unnamed) and each named kernel launched at least once."""
+    want = {name: want.get(name, 0) for name in KERNEL_SYMBOLS}
+    if counts != want or not all(want[n] > 0 for n in want if want[n]):
+        raise AssertionError(f"{what}: kernel launches {counts}, want {want}")
+
+
+def paged_want(cfg, st, rounds=0):
+    """Launches a paged drain must count: the decode kernel per layer per
+    decode step (or the window kernel per layer per verify round), and the
+    flash kernel per layer per target prefill and per draft layer per
+    draft prefill."""
+    flash = cfg.n_layers * st["prefills"] \
+        + SPEC_DRAFT_LAYERS * st.get("draft_prefills", 0)
+    if rounds:
+        return {"paged_attention_multi": cfg.n_layers * rounds,
+                "flash_attention": flash}
+    return {"paged_attention": cfg.n_layers * st["decode_steps"],
+            "flash_attention": flash}
 
 
 def check_serve(cfg, streams, metrics):
@@ -293,15 +410,7 @@ def check_serve(cfg, streams, metrics):
         raise AssertionError("the pool did not force a preemption")
     if metrics["peak_shared_blocks"] < 1:
         raise AssertionError("no prompt prefix was shared")
-    if metrics["multi_launches"]:
-        raise AssertionError("the non-speculative path launched the "
-                             "verify-window kernel")
-    want = cfg.n_layers * metrics["decode_steps"]
-    if not 0 < metrics["launches"] == want:
-        raise AssertionError(f"paged_attention launched "
-                             f"{metrics['launches']} times; the path ran "
-                             f"{metrics['decode_steps']} decode steps x "
-                             f"{cfg.n_layers} layers = {want}")
+    check_counts("paged drain", metrics["counts"], paged_want(cfg, metrics))
 
 
 def replay(torch, cfg, params, prompts, streams, attend, device):
@@ -366,13 +475,14 @@ def check_replay(torch, cfg, params, prompts, streams, device):
     return diff, gap, agree
 
 
-def profile_drain(torch, eng, vocab, tag="[6]", kernel="paged_attention"):
-    """Phase 6 (and 7b): where the time goes. One more drain (8 requests of
-    64 prompt tokens, one decode chunk each) under ``torch.profiler``: wall
-    time, the card's busy time, and the kernels that took it. The trace
-    must show ``kernel`` as many times as its wrapper counted launches in
-    this drain, and the other paged-attention kernel not at all."""
-    from repro_torch import kernels as K
+def profile_drain(torch, eng, vocab, want_fn, tag="[6]"):
+    """Phase 6 (and 7b, 10): where the time goes. One more drain (8
+    requests of 64 prompt tokens, one decode chunk each) under
+    ``torch.profiler``: wall time, the card's busy time, and the kernels
+    that took it. ``want_fn(stats)`` gives the launches this drain's path
+    must make of each kernel (its stats in hand); every kernel's wrapper
+    must count exactly that, the trace must show each kernel under its own
+    name as often, and the kernels of other paths not at all."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(SEED + 1)
@@ -380,17 +490,18 @@ def profile_drain(torch, eng, vocab, tag="[6]", kernel="paged_attention"):
         eng.submit(rng.integers(0, vocab, size=64).astype(np.int32),
                    max_new_tokens=DECODE_CHUNK + 1)
     torch.cuda.synchronize()
-    counted = {name: getattr(K, name).launches for name in KERNEL_SYMBOLS}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    reset_counts()
+    # the card's activity only: the busy share and the kernel counts need
+    # nothing else, and the host's operator events would double the trace
+    # and its parsing time
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    counted = {name: getattr(K, name).launches - n
-               for name, n in counted.items()}
-    # device-side events only (kernels, copies): the operator rows above
-    # them would count the same time twice
+    counted = read_counts()
+    # device-side events only (kernels, copies), not the runtime calls on
+    # the host that launched them
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
@@ -406,16 +517,15 @@ def profile_drain(torch, eng, vocab, tag="[6]", kernel="paged_attention"):
         print(f"{tag}   {ms:9.3f} ms  {count:6d} x  {key[:90]}")
     traced = {name: [(ms, count) for key, ms, count in rows if sym in key]
               for name, sym in KERNEL_SYMBOLS.items()}
-    attn_ms = sum(ms for ms, _ in traced[kernel])
     n_traced = {name: sum(c for _, c in t) for name, t in traced.items()}
-    print(f"{tag}   {kernel} ({KERNEL_SYMBOLS[kernel]}): {attn_ms:.3f} ms "
-          f"in {n_traced[kernel]} launches ({attn_ms / busy_ms:.1%} of the "
-          f"card's busy time)")
-    want = {name: counted[name] if name == kernel else 0
-            for name in KERNEL_SYMBOLS}
-    if not 0 < n_traced[kernel] or n_traced != want or counted != want:
-        raise AssertionError(f"profiled drain: traced launches {n_traced}, "
-                             f"counted {counted}; want {kernel} only")
+    want = want_fn(eng.stats)
+    for name in want:
+        k_ms = sum(ms for ms, _ in traced[name])
+        print(f"{tag}   {name} ({KERNEL_SYMBOLS[name]}): {k_ms:.3f} ms in "
+              f"{n_traced[name]} launches ({k_ms / busy_ms:.1%} of the "
+              f"card's busy time)")
+    check_counts(f"{tag} profiled drain, counted", counted, want)
+    check_counts(f"{tag} profiled drain, traced", n_traced, want)
     return busy_ms, wall_ms
 
 
@@ -524,16 +634,9 @@ def check_spec(cfg, streams, m):
     if any(len(s) != MAX_NEW for s in streams):
         raise AssertionError(f"spec stream lengths "
                              f"{[len(s) for s in streams]}")
-    want = cfg.n_layers * m["rounds"]
-    if not 0 < m["multi_launches"] == want:
-        raise AssertionError(f"paged_attention_multi launched "
-                             f"{m['multi_launches']} times; the path ran "
-                             f"{m['rounds']} verify rounds x {cfg.n_layers} "
-                             f"layers = {want}")
-    if m["launches"]:
-        raise AssertionError(f"the speculative path launched paged_attention "
-                             f"{m['launches']} times; the draft attends "
-                             "with sdpa")
+    # the decode kernel must not launch: the draft attends with sdpa
+    check_counts("speculative drain", m["counts"],
+                 paged_want(cfg, m, rounds=m["rounds"]))
     partial = m["spec_rounds"] - m["spec_full_rounds"]
     if not (m["spec_accepted"] > 0 and m["spec_full_rounds"] > 0
             and partial > 0):
@@ -616,6 +719,341 @@ def check_spec_replay(torch, cfg, params, prompts, streams, base, device):
                              "the plain attention beyond the bf16 tolerance")
 
 
+# ---------------------------------------------------------------------------
+# Phases 8-10: the prefill kernels and continuous serving of recurrentgemma
+# ---------------------------------------------------------------------------
+
+def flash_case(torch, gen, *, B, H, Hkv, S, Dh, dtype):
+    """q ``[B, H, S, Dh]`` and k/v ``[B, Hkv, S, Dh]`` on the card, each a
+    ``[B, S, heads, Dh]`` tensor viewed in the kernel's layout, as the
+    model hands them over."""
+    def one(heads):
+        return torch.randn((B, S, heads, Dh), generator=gen,
+                           device="cuda").to(dtype).transpose(1, 2)
+    return one(H), one(Hkv), one(Hkv)
+
+
+def attention_pairs(Sq, Skv, causal, window) -> int:
+    """Unmasked (query, key) pairs of one head: the work the kernel must
+    do, whatever tiles it touches."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def attention_bound_ms(q, k, causal, window):
+    """Least time for one call: q, k, v and the output moved once over the
+    HBM rate, or 4 Dh flops per unmasked pair and query head (QK and PV)
+    over the dtype's peak, whichever is larger."""
+    B, H, Sq, Dh = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    esz = q.element_size()
+    nbytes = esz * (2 * B * H * Sq * Dh + 2 * B * Hkv * Skv * Dh)
+    flops = 4 * Dh * B * H * attention_pairs(Sq, Skv, causal, window)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def library_attention_ms(torch, q, k, v, causal, window, flush):
+    """The library yardstick for the flash kernel: one
+    ``scaled_dot_product_attention`` call on the same inputs (GQA by
+    ``enable_gqa``; a sliding window as a boolean mask), checked to compute
+    the same function and timed like the kernel. The port never calls it:
+    it is the kernels line's ``library_ms`` and nothing else."""
+    Sq, Skv = q.shape[2], k.shape[2]
+    mask = None
+    if window is not None or (causal and Sq != Skv):
+        qp = torch.arange(Sq, device=q.device)[:, None]
+        kp = torch.arange(Skv, device=q.device)[None, :]
+        mask = kp > qp - (window or Skv + Sq)
+        if causal:
+            mask &= kp <= qp
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def call():
+        return sdpa(q, k, v, attn_mask=mask,
+                    is_causal=causal and mask is None, enable_gqa=True)
+
+    return call(), cuda_ms(torch, call, flush=flush)
+
+
+def within_limit(out, ref) -> float:
+    """How far ``out`` exceeds its limit around ``ref`` (at most 0 when
+    within): ``TOL_F32`` in f32, ``BF16_ATOL + BF16_RTOL |ref|`` in bf16."""
+    diff = (out.float() - ref.float()).abs()
+    if str(out.dtype) == str(ref.dtype) == "torch.float32":
+        return float(diff.max()) - TOL_F32
+    return float((diff - (BF16_ATOL + BF16_RTOL * ref.float().abs())).max())
+
+
+def library_excess(out, ref, spread) -> float:
+    """How far the library's output exceeds its limit around the plain
+    version ``ref`` (at most 0 when within): ``TOL_F32`` in f32; in bf16
+    the kernel's limit plus ``LIB_P_RTOL`` times ``spread``, the plain
+    attention of |v|."""
+    if str(out.dtype) == "torch.float32":
+        return within_limit(out, ref)
+    return float(((out.float() - ref.float()).abs() - BF16_ATOL
+                  - BF16_RTOL * ref.float().abs()
+                  - LIB_P_RTOL * spread.float()).max())
+
+
+def check_flash_kernel(torch):
+    """Phase 8: the flash-attention kernel vs its plain version at both
+    prefill shapes of the serving paths — (a) recurrentgemma-2b's (10 query
+    heads over one KV head, Dh 256, the 2 048 window, a 2 300-token prompt)
+    and (b) smollm-360m's (15 over 5, Dh 64, causal, 300 tokens) — and at
+    edge cases; each timed beside the plain version and the library
+    yardstick. Returns the kernels-line entry of (a)."""
+    from repro_torch.kernels import attention_ref, flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (label, B, H, Hkv, S, Dh, dtype, causal, window)
+    cases = [
+        ("a recurrentgemma-2b", 1, 10, 1, 2300, 256, bf16, True, 2048),
+        ("b smollm-360m", 1, 15, 5, 300, 64, bf16, True, None),
+        ("S 100 (tail tile)", 1, 10, 1, 100, 256, bf16, True, 64),
+        ("S 37 < one tile", 1, 15, 5, 37, 64, bf16, True, None),
+        ("window 1", 1, 10, 1, 300, 256, bf16, True, 1),
+        ("non-causal", 2, 4, 2, 200, 128, bf16, False, None),
+        ("f32, window 64", 1, 10, 1, 300, 256, f32, True, 64),
+        ("f32 smollm heads", 1, 15, 5, 300, 64, f32, True, None),
+    ]
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
+    entry = None
+    for label, B, H, Hkv, S, Dh, dtype, causal, window in cases:
+        q, k, v = flash_case(torch, gen, B=B, H=H, Hkv=Hkv, S=S, Dh=Dh,
+                             dtype=dtype)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        ref = attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        excess = within_limit(out, ref)
+        tol = (f"{TOL_F32}" if dtype == f32
+               else f"{BF16_ATOL} + {BF16_RTOL} |plain|")
+        print(f"[8] flash_attention {label}: B={B} H={H} Hkv={Hkv} S={S} "
+              f"Dh={Dh} {str(dtype)[6:]} causal={causal} window={window}: "
+              f"max_abs_err {err:.3e} (tol {tol}, |plain| max "
+              f"{float(ref.float().abs().max()):.3f})")
+        if not torch.isfinite(out).all() or excess > 0:
+            raise AssertionError(f"flash_attention {label}: |kernel - plain| "
+                                 f"exceeds its limit by {excess}")
+        ms = cuda_ms(torch, lambda: flash_attention(
+            q, k, v, causal=causal, window=window), flush=flush)
+        plain_ms = cuda_ms(torch, lambda: attention_ref(
+            q, k, v, causal=causal, window=window), flush=flush)
+        lib_out, library_ms = library_attention_ms(torch, q, k, v, causal,
+                                                   window, flush)
+        lib_err = float((lib_out.float() - ref.float()).abs().max())
+        spread = attention_ref(q, k, v.abs(), causal=causal, window=window)
+        lib_excess = library_excess(lib_out, ref, spread)
+        if not lib_excess <= 0:
+            raise AssertionError(f"the library yardstick computes another "
+                                 f"function ({label}: |library - plain| "
+                                 f"exceeds its limit by {lib_excess}; max "
+                                 f"{lib_err})")
+        if window is not None and window < S and dtype != f32:
+            # the limit tells the windowed function from the causal one
+            unmasked, _ = library_attention_ms(torch, q, k, v, causal, None,
+                                               flush)
+            no_window = library_excess(unmasked, ref, spread)
+            print(f"[8] flash_attention {label}: the library without its "
+                  f"window exceeds the limit by {no_window:.3e}")
+            if not no_window > 0:
+                raise AssertionError(f"{label}: the library check does not "
+                                     f"tell a missing window mask")
+        bound, bound_by = attention_bound_ms(q, k, causal, window)
+        lib_tol = (tol if dtype == f32
+                   else f"{tol} + {LIB_P_RTOL} plain(|v|)")
+        print(f"[8] flash_attention {label}: {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library (scaled_dot_product_attention, "
+              f"max |library - plain| {lib_err:.3e}, tol {lib_tol}, "
+              f"{lib_excess:.3e} past it) {library_ms:.4f} ms, "
+              f"bound {bound:.5f} ms ({bound_by}), "
+              f"{attention_pairs(S, S, causal, window)} pairs per head, "
+              f"L2 cold")
+        if entry is None:
+            entry = {"name": "flash_attention", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               "flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention.py:98",
+                     "launches": None, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": bound_by, "library_ms": library_ms}
+    del flush
+    return entry
+
+
+def check_rglru_kernel(torch, R):
+    """Phase 9: the RG-LRU scan kernel vs its plain version at the hybrid
+    prefill's shape ``[1, 2 300, R]`` in bf16 and f32, and at an odd S, each
+    timed beside the plain version. No single PyTorch call computes a
+    linear recurrence, so there is no library yardstick. Returns the
+    kernels-line entry of the bf16 prefill shape."""
+    from repro_torch.kernels import rglru_ref, rglru_scan
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
+    entry = None
+    for S, dtype in ((HYB_LONG_PROMPT, torch.bfloat16),
+                     (HYB_LONG_PROMPT, torch.float32),
+                     (1001, torch.bfloat16)):
+        a = torch.sigmoid(torch.randn((1, S, R), generator=gen,
+                                      device="cuda")).to(dtype)
+        x = torch.randn((1, S, R), generator=gen, device="cuda").to(dtype)
+        out = rglru_scan(a, x)
+        ref = rglru_ref(a, x)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        if dtype == torch.float32:
+            ok, what = torch.equal(out, ref), "bitwise equal"
+        else:
+            wide = rglru_ref(a.float(), x.float()).to(dtype)
+            ok = torch.equal(out, wide) and err <= TOL_RGLRU_BF16
+            what = (f"bitwise equal to the f32-carry plain version; tol "
+                    f"{TOL_RGLRU_BF16} against the bf16 carry")
+        print(f"[9] rglru_scan B=1 S={S} R={R} {str(dtype)[6:]}: max_abs_err "
+              f"{err:.3e} against the plain version ({what}); |plain| max "
+              f"{float(ref.float().abs().max()):.3f}")
+        if not (ok and torch.isfinite(out).all()):
+            raise AssertionError(f"rglru_scan S={S} {dtype}: kernel and plain "
+                                 f"version disagree")
+        ms = cuda_ms(torch, lambda: rglru_scan(a, x), flush=flush)
+        # the plain version is a host loop of ~3 S small launches (tens of
+        # ms): a few calls time it well enough
+        plain_ms = cuda_ms(torch, lambda: rglru_ref(a, x), n=5, warmup=1,
+                           flush=flush)
+        t_bytes = 3 * a.numel() * a.element_size() / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * a.numel() / PEAK_FLOPS["float32"] * 1e3
+        bound = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"[9] rglru_scan B=1 S={S} {str(dtype)[6:]}: {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by}), "
+              f"library none, L2 cold")
+        if entry is None:
+            entry = {"name": "rglru_scan", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+                     "replaces": "src/repro/kernels/rglru_scan.py:49",
+                     "launches": None, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": bound_by, "library_ms": None}
+    del flush
+    return entry
+
+
+def hybrid_layer_counts(cfg) -> tuple[int, int]:
+    """(attention layers, recurrent layers) of a hybrid config."""
+    pat = cfg.block_pattern
+    n_attn = sum(pat[i % len(pat)] == "attn" for i in range(cfg.n_layers))
+    return n_attn, cfg.n_layers - n_attn
+
+
+def hybrid_want(cfg, st) -> dict:
+    """Launches a continuous hybrid drain must count: the flash kernel per
+    attention layer and the scan per recurrent layer, per prefill."""
+    n_attn, n_rec = hybrid_layer_counts(cfg)
+    return {"flash_attention": n_attn * st["prefills"],
+            "rglru_scan": n_rec * st["prefills"]}
+
+
+def hybrid_workload(vocab):
+    """8 seeded prompts: 7 of 17-400 tokens and, third in line, one of
+    2 300 tokens, past the 2 048-position local window."""
+    rng = np.random.default_rng(SEED + 10)
+    lens = list(rng.integers(HYB_PROMPT_LENS[0], HYB_PROMPT_LENS[1] + 1,
+                             size=HYB_REQUESTS - 1))
+    lens.insert(2, HYB_LONG_PROMPT)
+    return [rng.integers(0, vocab, size=int(n)).astype(np.int32)
+            for n in lens]
+
+
+def serve_hybrid(torch, cfg, params, device):
+    """Phase 10: continuous serving of full-width recurrentgemma-2b. Returns
+    (engine, prompts, streams, metrics); the prefill seconds are the
+    card-synchronised time of each admission prefill, summed."""
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(cfg, params, mode="continuous", capacity=HYB_CAPACITY,
+                      max_batch=HYB_MAX_BATCH, decode_chunk=DECODE_CHUNK,
+                      device=device)
+    prefill, prefill_s = eng._prefill, []
+
+    def timed_prefill(*args):
+        t0 = time.perf_counter()
+        out = prefill(*args)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        return out
+
+    eng._prefill = timed_prefill
+    prompts = hybrid_workload(cfg.vocab)
+    streams, m = drain(torch, eng, prompts, HYB_MAX_NEW)
+    eng._prefill = prefill
+    m["prefill_s"] = sum(prefill_s)
+    m["prompt_tokens"] = sum(map(len, prompts))
+    if any(len(s) != HYB_MAX_NEW for s in streams):
+        raise AssertionError(f"stream lengths {[len(s) for s in streams]}")
+    if not all(0 <= t < cfg.vocab for s in streams for t in s):
+        raise AssertionError("token out of the vocabulary")
+    check_counts("continuous hybrid drain", m["counts"],
+                 hybrid_want(cfg, m))
+    return eng, prompts, streams, m
+
+
+def replay_hybrid(torch, cfg, params, prompts, streams, attend, scan,
+                  device):
+    """Teacher-forced per-step logits [n, HYB_MAX_NEW, V] (f32): each
+    prompt's prefill through ``attend`` and ``scan`` into a slot cache,
+    then the served tokens fed back through the slot decode, every slot at
+    its own position."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serve.batch import init_slot_cache, write_slot
+
+    cache = init_slot_cache(cfg, len(prompts), HYB_CAPACITY, device=device)
+    first = []
+    for i, p in enumerate(prompts):
+        lg, c = prefill(cfg, params, torch.as_tensor(p[None], device=device),
+                        HYB_CAPACITY, attend=attend, scan=scan)
+        write_slot(cache, c, i)
+        first.append(lg[0, -1].float())
+    steps = [torch.stack(first)]
+    for t in range(HYB_MAX_NEW - 1):
+        tok = torch.as_tensor([[s[t]] for s in streams], dtype=torch.int32,
+                              device=device)
+        lg, cache = decode_step(cfg, params, tok, cache)
+        steps.append(lg[:, -1].float())
+    return torch.stack(steps, dim=1)
+
+
+def check_replay_hybrid(torch, cfg, params, prompts, streams, device):
+    """Phase 10: the served streams replayed with both kernels and with
+    both plain versions; the logits must agree, and each served token must
+    be within the tolerance of the plain argmax logit."""
+    from repro_torch.kernels import attention_ref, ops, rglru_ref
+
+    ker = replay_hybrid(torch, cfg, params, prompts, streams, ops.attention,
+                        ops.rglru, device)
+    plain = replay_hybrid(torch, cfg, params, prompts, streams,
+                          attention_ref, rglru_ref, device)
+    diff = float((ker - plain).abs().max())
+    served = torch.as_tensor(streams, device=device).long()
+    served_logit = plain.gather(-1, served[..., None])[..., 0]
+    gap = float((plain.max(-1).values - served_logit).max())
+    agree = float((plain.argmax(-1) == served).float().mean())
+    print(f"[10] replay over {len(prompts)} x {HYB_MAX_NEW} steps: max "
+          f"|logits kernels - plain| {diff:.4f} (tol {TOL_REPLAY}); served "
+          f"token within {gap:.4f} of the plain argmax logit (tol "
+          f"{TOL_REPLAY}); argmax agreement {agree:.4f}; |logit| max "
+          f"{float(plain.abs().max()):.3f}")
+    if not torch.isfinite(ker).all() or diff > TOL_REPLAY \
+            or gap > TOL_REPLAY:
+        raise AssertionError("hybrid replay: the served streams disagree with "
+                             "the plain versions beyond the bf16 tolerance")
+
+
 def main() -> int:
     import torch
 
@@ -629,6 +1067,14 @@ def main() -> int:
     from repro_torch.models import init_params
 
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(tag):
+        """Print the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        print(f"{tag} phase took {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
+
     card = card_line()
     print(f"[1] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
@@ -639,14 +1085,14 @@ def main() -> int:
     logs = build.build(KERNEL_SOURCES)
     print(f"[2] built {', '.join(KERNEL_SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"[2] {name}: {line.strip()}")
+    for line in ptxas_report(logs):
+        print(f"[2] {line}")
+    lap("[2]")
 
     cfg = get(ARCH).config
     kernels = [check_kernels(torch, cfg)]
     kernels.append(check_multi_kernel(torch, cfg))
+    lap("[3, 7a]")
 
     device = torch.device("cuda")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
@@ -656,12 +1102,16 @@ def main() -> int:
     kernels[0]["launches"] = metrics["launches"]
     print("[4] " + json.dumps({k: metrics[k] for k in (
         "wall_s", "tokens", "tokens_per_s", "ttft_p50_ms", "ttft_max_ms",
-        "launches", "decode_steps", "decode_dispatches", "prefills",
-        "preemptions", "prefix_hits", "cow_forks", "peak_shared_blocks",
-        "peak_concurrency", "peak_blocks_in_use", "prefill_s")}))
+        "launches", "flash_launches", "decode_steps", "decode_dispatches",
+        "prefills", "preemptions", "prefix_hits", "cow_forks",
+        "peak_shared_blocks", "peak_concurrency", "peak_blocks_in_use",
+        "prefill_s")}))
+    lap("[4]")
 
     check_replay(torch, cfg, eng.params, prompts, streams, device)
-    profile_drain(torch, eng, cfg.vocab)
+    lap("[5]")
+    profile_drain(torch, eng, cfg.vocab, lambda st: paged_want(cfg, st))
+    lap("[6]")
     del eng
 
     spec_eng, prompts, spec_streams, base, m, bm = spec_drain(
@@ -674,14 +1124,41 @@ def main() -> int:
         "spec_proposed", "spec_accepted", "acceptance", "spec_rounds",
         "spec_full_rounds", "draft_prefills", "decode_dispatches", "rounds",
         "preemptions", "prefills", "prefix_hits", "multi_launches",
-        "launches", "prefill_s")}))
+        "launches", "flash_launches", "prefill_s")}))
     print("[7b] non-spec, same target " + json.dumps({k: bm[k] for k in (
         "wall_s", "tokens", "tokens_per_s", "ttft_p50_ms", "ttft_max_ms",
         "decode_dispatches", "preemptions", "launches")}))
     check_spec_replay(torch, cfg, spec_eng.params, prompts, spec_streams,
                       base, device)
-    profile_drain(torch, spec_eng, cfg.vocab, tag="[7b]",
-                  kernel="paged_attention_multi")
+    rounds = spec_eng.spec.rounds_for(DECODE_CHUNK)
+    profile_drain(torch, spec_eng, cfg.vocab, lambda st: paged_want(
+        cfg, st, rounds=st["decode_dispatches"] * rounds), tag="[7b]")
+    lap("[7b]")
+    del spec_eng, params
+    torch.cuda.empty_cache()
+
+    hcfg = get(HYBRID_ARCH).config
+    kernels.append(check_flash_kernel(torch))
+    lap("[8]")
+    kernels.append(check_rglru_kernel(torch, hcfg.lru_width))
+    lap("[9]")
+    hparams = init_params(hcfg, torch.Generator(
+        device="cuda").manual_seed(SEED), device=device)
+    h_eng, h_prompts, h_streams, hm = serve_hybrid(torch, hcfg, hparams,
+                                                   device)
+    kernels[2]["launches"] = hm["counts"]["flash_attention"]
+    kernels[3]["launches"] = hm["counts"]["rglru_scan"]
+    print("[10] " + json.dumps({k: hm[k] for k in (
+        "wall_s", "tokens", "tokens_per_s", "ttft_p50_ms", "ttft_max_ms",
+        "prefill_s", "prompt_tokens", "prefills", "decode_steps",
+        "decode_dispatches", "peak_concurrency", "counts")}))
+    lap("[10] serve")
+    check_replay_hybrid(torch, hcfg, h_eng.params, h_prompts, h_streams,
+                        device)
+    lap("[10] replay")
+    profile_drain(torch, h_eng, hcfg.vocab,
+                  lambda st: hybrid_want(hcfg, st), tag="[10]")
+    lap("[10] profile")
     print(f"[ ] total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -8,6 +8,7 @@ from repro_torch.configs.base import ArchSpec
 
 ARCHS: dict[str, str] = {
     "smollm-360m": "repro_torch.configs.smollm_360m",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
 

@@ -13,16 +13,20 @@ import re
 from pathlib import Path
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_attention_multi import paged_attention_multi
-from repro_torch.kernels.ref import (paged_attention_multi_ref,
-                                     paged_attention_ref)
+from repro_torch.kernels.ref import (attention_ref, paged_attention_multi_ref,
+                                     paged_attention_ref, rglru_ref)
+from repro_torch.kernels.rglru_scan import rglru_scan
 
 # kernel wrapper -> (plain version in kernels/ref.py, parity test module)
 KERNEL_ORACLES: dict[str, tuple[str, str]] = {
     "paged_attention": ("paged_attention_ref", "tests/test_torch_kernels.py"),
     "paged_attention_multi": ("paged_attention_multi_ref",
                               "tests/test_torch_kernels.py"),
+    "flash_attention": ("attention_ref", "tests/test_torch_flash_rglru.py"),
+    "rglru_scan": ("rglru_ref", "tests/test_torch_flash_rglru.py"),
 }
 
 _PKG = Path(__file__).resolve().parent
@@ -62,6 +66,7 @@ def check_kernel_oracles(registry: dict[str, tuple[str, str]] | None = None,
     return problems
 
 
-__all__ = ["KERNEL_ORACLES", "check_kernel_oracles", "paged_attention",
-           "paged_attention_multi", "paged_attention_multi_ref",
-           "paged_attention_ref"]
+__all__ = ["KERNEL_ORACLES", "attention_ref", "check_kernel_oracles",
+           "flash_attention", "paged_attention", "paged_attention_multi",
+           "paged_attention_multi_ref", "paged_attention_ref", "rglru_ref",
+           "rglru_scan"]

@@ -51,3 +51,42 @@ def paged_attention_ref(q, k_pages, v_pages, tables, lengths, layer=0):
     per slot, 0 = dead slot -> zeros out)."""
     return paged_attention_multi_ref(q[:, None], k_pages, v_pages, tables,
                                      lengths, layer)[:, 0]
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None):
+    """Blocked attention's oracle: one full softmax in f32.
+
+    q: [B, H, Sq, Dh]; k/v: [B, Hkv, Skv, Dh] -> [B, H, Sq, Dh] in q's
+    dtype. Query head h reads KV head ``h * Hkv // H``; query i and key j
+    sit at positions i and j. ``causal`` masks j > i, ``window`` masks
+    j <= i - window; masked scores are -inf, and a row with nothing to attend
+    gives zeros."""
+    B, H, Sq, Dh = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, Hkv, G, Sq, Dh).float() * Dh ** -0.5
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)  # masked rows
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(B, H, Sq, Dh).to(q.dtype)
+
+
+def rglru_ref(a, x):
+    """The linear recurrence ``h_t = a_t * h_{t-1} + x_t`` from ``h_0 = 0``,
+    step by step. a/x: [B, S, R] -> h [B, S, R]. The carry stays in the
+    inputs' dtype, as the JAX oracle's and the JAX model's ``lax.scan``
+    carry it (the CUDA kernel carries it in f32)."""
+    h = torch.zeros_like(a[:, 0])
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + x[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)

@@ -1,9 +1,12 @@
 """CLI serving driver for the port: paged KV over the CUDA paged-attention
-kernel.
+kernel, or continuous batching over slot caches; every prefill runs the
+CUDA flash-attention kernel (and, for the hybrid family, the RG-LRU scan).
 
   python -m repro_torch.launch.serve --arch smollm-360m --requests 8
   python -m repro_torch.launch.serve --arch smollm-360m --reduced \\
       --device cpu --block-size 8 --num-blocks 16
+  python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
+      --mode continuous
 
 Weights are random, drawn from ``--seed``.
 """
@@ -29,14 +32,18 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--capacity", type=int, default=64)
     ap.add_argument("--max-batch", type=int, default=4)
-    ap.add_argument("--mode", choices=("paged",), default="paged")
+    ap.add_argument("--mode", choices=("paged", "continuous"),
+                    default="paged",
+                    help="paged KV (dense family) or continuous batching "
+                         "over slot caches (dense and hybrid)")
     ap.add_argument("--decode-chunk", type=int, default=8,
                     help="decode tokens per chunk")
     ap.add_argument("--block-size", type=int, default=16,
-                    help="KV positions per block")
+                    help="KV positions per block (paged mode)")
     ap.add_argument("--num-blocks", type=int, default=None,
                     help="physical KV blocks in the pool "
-                         "(default: max_batch*capacity/block_size)")
+                         "(paged mode; default: "
+                         "max_batch*capacity/block_size)")
     ap.add_argument("--kv-impl", choices=("auto", "kernel"), default="auto",
                     help="paged attention: the CUDA kernel (its plain "
                          "version for --device cpu)")

@@ -1,18 +1,27 @@
-"""Attention: GQA projections, chunked softmax attention (prefill), and the
-dense one-token decode against a slot-layout KV cache (the speculative
-draft's path).
+"""Attention: GQA projections, the prefill attention, chunked softmax
+attention, and the dense one-token decode against a slot-layout KV cache
+(full, or a ring for a sliding window).
+
+Prefill attention (:func:`prefill_attention`) goes through
+:func:`repro_torch.kernels.ops.attention`: the CUDA flash kernel on the
+card, its plain version on the CPU. The JAX package names its Pallas flash
+kernel as the TPU-target implementation of this step and runs the chunked
+``sdpa`` elsewhere.
 
 ``sdpa`` is plain PyTorch — einsum, softmax — in the JAX package's order of
 operations (``repro.models.attention.sdpa``): q is scaled in the compute
 dtype before the QK product, the scores are cast to f32 after it, the mask
 is an additive ``NEG_INF`` bias, and the probabilities are cast back to the
-compute dtype before the PV product. Paged decode attention does not come
-through here: it walks the block table in :mod:`repro_torch.kernels`.
+compute dtype before the PV product. Decode against a slot cache uses it,
+as the JAX package does (it has no decode kernel for dense slots). Paged
+decode attention does not come through here: it walks the block table in
+:mod:`repro_torch.kernels`.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models.layers import dense, init_dense, rope
 
 NEG_INF = -2.0 ** 30
@@ -82,6 +91,21 @@ def sdpa(q, k, v, *, q_positions, k_positions, causal: bool,
     return out.reshape(B, Sq, H, Dh)
 
 
+def prefill_attention(q, k, v, *, causal: bool, window: int | None,
+                      attend=ops.attention):
+    """Self-attention over a whole prompt, positions 0 .. S-1. q: [B, S, H,
+    Dh], k/v: [B, S, Hkv, Dh] -> [B, S, H, Dh].
+
+    ``attend`` takes the kernels' ``[B, H, S, Dh]`` layout:
+    :func:`repro_torch.kernels.ops.attention` unless the caller passes
+    another (``chip_smoke.py`` replays the model through the plain version
+    on the card). The layout change is a view both ways; the CUDA kernel
+    reads through strides and writes its output in q's layout."""
+    out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 causal=causal, window=window)
+    return out.transpose(1, 2)
+
+
 def self_attention(cfg, p, x, positions, *, causal=True, window=None,
                    chunk: int = 512):
     """Training / prefill self-attention (no cache)."""
@@ -105,18 +129,19 @@ def init_kv_cache(cfg, batch: int, capacity: int, *, device, dtype=None):
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
-def decode_self_attention(cfg, p, x, cache, idx):
-    """One-token decode for every slot at its own position, full attention.
+def decode_self_attention(cfg, p, x, cache, idx, *, window=None):
+    """One-token decode for every slot at its own position.
 
     x: [B, 1, D]; cache k/v [B, C, Hkv, Dh], written in place; idx: [B]
     absolute position of each slot's new token. Returns out [B, 1, D].
 
     The JAX package vmaps this over slots with a scalar ``idx``; here the
-    slots are one batch. The new K/V land at ``min(idx, C - 1)``: JAX's
-    ``dynamic_update_slice`` clamps an out-of-range start the same way, which
-    a speculative draft reaches when it decodes past a request's budget.
-    RoPE takes the unclamped position; slot ``i`` attends its first
-    ``min(idx + 1, C)`` cache positions.
+    slots are one batch. With ``window`` set the cache is a ring of
+    capacity C: the new K/V land at slot ``idx % C``. Otherwise they land at
+    ``min(idx, C - 1)``: JAX's ``dynamic_update_slice`` clamps an
+    out-of-range start the same way, which a speculative draft reaches when
+    it decodes past a request's budget. RoPE takes the unclamped position;
+    slot ``i`` attends its first ``min(idx + 1, C)`` cache positions.
     """
     B = x.shape[0]
     q, k_new, v_new = qkv(cfg, p, x)
@@ -125,7 +150,8 @@ def decode_self_attention(cfg, p, x, cache, idx):
     k_new = rope(k_new, pos, cfg.rope_theta)
     C = cache["k"].shape[1]
     rows = torch.arange(B, device=x.device)
-    at = torch.clamp(idx, max=C - 1).long()
+    at = (idx % C if window is not None else torch.clamp(idx, max=C - 1)
+          ).long()
     cache["k"][rows, at] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][rows, at] = v_new[:, 0].to(cache["v"].dtype)
     zeros = torch.zeros((C,), dtype=torch.int32, device=x.device)

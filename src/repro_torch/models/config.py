@@ -1,12 +1,12 @@
-"""ModelConfig — the architecture fields the port's dense path reads.
+"""ModelConfig — the architecture fields the port's model paths read.
 
 The field names are the JAX package's, so a test can build both configs
 from the same overrides; ``dtype`` and ``param_dtype`` are ``torch.dtype``s.
-The port runs the ``dense`` family so far; the fields other families need
-come back with the slice that first runs them (``ROADMAP.md``). ``family``,
-``window``, ``norm``, ``act``, ``qkv_bias`` and ``logits_softcap`` are kept
-so that ``models.transformer.require_dense`` can reject a config that needs
-more than the port has."""
+The port runs the ``dense`` and ``hybrid`` (RecurrentGemma) families so far;
+the fields other families need come back with the slice that first runs
+them (``ROADMAP.md``). ``window``, ``norm``, ``qkv_bias`` and
+``logits_softcap`` are kept so that ``models.transformer.require_ported``
+can reject a config that needs more than the port has."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +17,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # only "dense" is ported
+    family: str                    # "dense" or "hybrid" in the port
     n_layers: int
     d_model: int
     n_heads: int
@@ -31,9 +31,15 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     window: int | None = None      # sliding-window attention (SWA variant)
 
+    # --- hybrid (RecurrentGemma) ---------------------------------------------
+    block_pattern: tuple[str, ...] = ()   # e.g. ("rec", "rec", "attn")
+    lru_width: int | None = None
+    conv1d_width: int = 4
+    local_window: int = 2048
+
     # --- numerics -------------------------------------------------------------
     norm: str = "rmsnorm"
-    act: str = "swiglu"
+    act: str = "swiglu"            # swiglu | gelu
     dtype: torch.dtype = torch.bfloat16       # activation dtype
     param_dtype: torch.dtype = torch.float32
     logits_softcap: float = 0.0
@@ -41,6 +47,8 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim is None:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.family == "hybrid" and not self.block_pattern:
+            object.__setattr__(self, "block_pattern", ("rec", "rec", "attn"))
         if self.n_heads % max(self.n_kv_heads, 1) != 0:
             raise ValueError(f"{self.name}: n_heads % n_kv_heads != 0")
 

@@ -1,8 +1,8 @@
-"""Primitive layers: RMSNorm, RoPE, projections, the SwiGLU MLP, tied
-embeddings. Parameters are nested dicts of tensors with the JAX package's
-names and layouts (``w`` is ``[d_in, d_out]``), so weights carry over
-unchanged. The variants other families use (LayerNorm, GELU, QKV bias,
-logit soft-capping) are not ported yet; ``models.transformer.require_dense``
+"""Primitive layers: RMSNorm, RoPE, projections, the SwiGLU and GELU MLPs,
+tied embeddings. Parameters are nested dicts of tensors with the JAX
+package's names and layouts (``w`` is ``[d_in, d_out]``), so weights carry
+over unchanged. The variants other families use (LayerNorm, QKV bias, logit
+soft-capping) are not ported yet; ``models.transformer.require_ported``
 rejects configs that need them.
 
 The arithmetic follows ``repro.models.layers`` step by step — where a value
@@ -15,15 +15,21 @@ import torch.nn.functional as F
 
 
 def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
-               scale: float | None = None):
+               scale: float | None = None, bias: bool = False):
     scale = scale if scale is not None else d_in ** -0.5
     w = (torch.randn((d_in, d_out), generator=gen, device=gen.device)
          * scale).to(dtype)
+    if bias:
+        return {"w": w, "b": torch.zeros((d_out,), dtype=dtype,
+                                         device=gen.device)}
     return {"w": w}
 
 
 def dense(p, x, dtype):
-    return x @ p["w"].to(dtype)
+    y = x @ p["w"].to(dtype)
+    if "b" in p:
+        y = y + p["b"].to(dtype)
+    return y
 
 
 def rms_norm(x, w, eps: float = 1e-6):
@@ -67,15 +73,26 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 def init_mlp(cfg, gen: torch.Generator):
     D, Fd = cfg.d_model, cfg.d_ff
     pd = cfg.param_dtype
-    return {"wi": init_dense(gen, D, Fd, pd)["w"],
-            "wg": init_dense(gen, D, Fd, pd)["w"],
-            "wo": init_dense(gen, Fd, D, pd, scale=Fd ** -0.5)["w"]}
+    p = {"wi": init_dense(gen, D, Fd, pd)["w"]}
+    if cfg.act == "swiglu":
+        p["wg"] = init_dense(gen, D, Fd, pd)["w"]
+    p["wo"] = init_dense(gen, Fd, D, pd, scale=Fd ** -0.5)["w"]
+    return p
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation (the exact erf form
+    differs by ~1e-3, enough to flip a near-tie token)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def mlp(cfg, p, x):
-    """SwiGLU."""
+    """SwiGLU, or a GELU MLP (no gate) with ``act="gelu"``."""
     dt = cfg.dtype
-    h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wi"].to(dt))
+    if cfg.act == "swiglu":
+        h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wi"].to(dt))
+    else:
+        h = gelu(x @ p["wi"].to(dt))
     return h @ p["wo"].to(dt)
 
 

@@ -1,16 +1,22 @@
-"""Dense decoder: parameter init, prefill and the decode cache.
+"""The decoder: parameter init, prefill and the decode cache, for the dense
+and hybrid (RecurrentGemma) families.
 
 * ``init_params(cfg, generator, device=)`` — dict tree with layer-stacked
-  weights ``[L, ...]`` (the JAX package's tree, leaf for leaf);
+  weights (the JAX package's tree, leaf for leaf): ``layers`` ``[L, ...]``
+  for dense; ``blocks`` (one entry per position of the block pattern,
+  stacked over ``n_layers // len(pattern)`` blocks) and the list ``rem`` of
+  trailing layers for hybrid;
 * ``prefill(cfg, params, tokens, capacity)`` — full-prompt forward that also
   materializes the decode cache;
 * ``init_cache(cfg, batch, capacity, device=)`` — an empty cache;
 * ``decode_step(cfg, params, tokens, cache)`` — one token per slot against
-  that cache (the speculative draft's step).
+  that cache.
 
 The JAX package scans over the stacked layers; here a Python loop walks them
-(:func:`layer_params` gives layer ``i``'s views). Only the ``dense`` family
-is ported; the others raise ``NotImplementedError`` (``ROADMAP.md``).
+(:func:`layer_params` gives layer ``i``'s views). Prefill attention and the
+prefill RG-LRU recurrence go through :mod:`repro_torch.kernels.ops`: the
+CUDA kernels on the card, their plain versions on the CPU. Other families
+raise ``NotImplementedError`` (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -19,28 +25,35 @@ from typing import Any
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models import rglru
 from repro_torch.models.attention import (decode_self_attention, init_attn,
-                                         init_kv_cache, qkv, sdpa)
+                                         init_kv_cache, prefill_attention,
+                                         qkv)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_norm, dense, embed, init_embed,
                                        init_mlp, make_norm_params, mlp, rope,
                                        unembed)
 
 Params = Any
+FAMILIES = ("dense", "hybrid")
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    """Reject configs the port cannot run yet: it has the dense
-    full-attention family with RMSNorm, SwiGLU, no QKV bias and no logit
-    soft-capping (``smollm-360m``)."""
-    if (cfg.family, cfg.window, cfg.norm, cfg.act, cfg.qkv_bias,
-            cfg.logits_softcap) != ("dense", None, "rmsnorm", "swiglu",
-                                    False, 0.0):
+def require_ported(cfg: ModelConfig) -> None:
+    """Reject configs the port cannot run yet: it has the dense and hybrid
+    families with RMSNorm, SwiGLU or GELU, full attention (the hybrid
+    family's local window is its own), no QKV bias and no logit
+    soft-capping (``smollm-360m``, ``recurrentgemma-2b``)."""
+    if (cfg.family not in FAMILIES or cfg.window is not None
+            or cfg.norm != "rmsnorm" or cfg.act not in ("swiglu", "gelu")
+            or cfg.qkv_bias or cfg.logits_softcap
+            or not set(cfg.block_pattern) <= {"rec", "attn"}):
         raise NotImplementedError(
             f"{cfg.name}: family={cfg.family!r} window={cfg.window!r} "
             f"norm={cfg.norm!r} act={cfg.act!r} qkv_bias={cfg.qkv_bias} "
-            f"logits_softcap={cfg.logits_softcap}: the port runs the dense "
-            "RMSNorm/SwiGLU family only (ROADMAP.md, queue 1, remaining "
+            f"logits_softcap={cfg.logits_softcap} "
+            f"block_pattern={cfg.block_pattern}: the port runs the dense and "
+            "hybrid RMSNorm families only (ROADMAP.md, queue 1, remaining "
             "model families)")
 
 
@@ -57,54 +70,115 @@ def _stack(trees: list) -> Params:
     return torch.stack(trees)
 
 
+def _init_layer(cfg: ModelConfig, gen: torch.Generator, kind: str) -> Params:
+    gd = gen.device
+    p = {"norm1": make_norm_params(cfg, cfg.d_model, gd),
+         "norm2": make_norm_params(cfg, cfg.d_model, gd)}
+    if kind == "rec":
+        p["rec"] = rglru.init_recurrent_block(cfg, gen)
+    else:
+        p["attn"] = init_attn(cfg, gen)
+    p["mlp"] = init_mlp(cfg, gen)
+    return p
+
+
+def _hybrid_shape(cfg: ModelConfig) -> tuple[tuple[str, ...], int, int]:
+    """(block pattern, stacked blocks, trailing ``rem`` layers)."""
+    pat = cfg.block_pattern
+    nb = cfg.n_layers // len(pat)
+    return pat, nb, cfg.n_layers - nb * len(pat)
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device: str | torch.device = "cuda") -> Params:
     """Random parameters drawn from ``generator`` on its own device, then
     moved to ``device``. Same tree and scales as the JAX package's
     ``init_params``; the draws differ (tests carry JAX weights over with
     :func:`repro_torch.weights.params_from_jax` instead)."""
-    require_dense(cfg)
+    require_ported(cfg)
     dev = resolve_device(device)
     gd = generator.device
     params = {"embed": init_embed(cfg, generator),
               "final_norm": make_norm_params(cfg, cfg.d_model, gd)}
-    layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({"norm1": make_norm_params(cfg, cfg.d_model, gd),
-                       "norm2": make_norm_params(cfg, cfg.d_model, gd),
-                       "attn": init_attn(cfg, generator),
-                       "mlp": init_mlp(cfg, generator)})
-    params["layers"] = _stack(layers)
+    if cfg.family == "hybrid":
+        pat, nb, rem = _hybrid_shape(cfg)
+        params["blocks"] = {
+            f"l{i}_{kind}": _stack([_init_layer(cfg, generator, kind)
+                                    for _ in range(nb)])
+            for i, kind in enumerate(pat)}
+        params["rem"] = [_init_layer(cfg, generator, pat[i % len(pat)])
+                         for i in range(rem)]
+    else:
+        params["layers"] = _stack([_init_layer(cfg, generator, "attn")
+                                   for _ in range(cfg.n_layers)])
     return tree_to(params, device=dev)
 
 
 def tree_to(tree: Params, **kw) -> Params:
-    """``Tensor.to(**kw)`` over every leaf of a nested dict."""
+    """``Tensor.to(**kw)`` over every leaf of a tree of dicts and lists."""
     if isinstance(tree, dict):
         return {k: tree_to(v, **kw) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, **kw) for v in tree]
     return tree.to(**kw)
+
+
+def compute_params(cfg: ModelConfig, params: Params, device) -> Params:
+    """``params`` on ``device`` as the model computes with them: every leaf
+    cast once to ``cfg.dtype``, which the JAX package casts each weight to at
+    every use, except the RG-LRU's ``lam``, which it reads in f32 (the
+    same arithmetic, once instead of per call)."""
+    def walk(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return tree.to(device=device,
+                       dtype=torch.float32 if name == "lam" else cfg.dtype)
+
+    return walk(params)
+
+
+def hybrid_layers(cfg: ModelConfig, params: Params, cache: Params):
+    """The hybrid model's layers in order — every block's pattern, then the
+    trailing ``rem`` layers — as ``(kind, layer params, layer cache)``; the
+    cache entries are views into ``cache``'s stacked leaves (or ``None``
+    when ``cache`` is)."""
+    pat, nb, _ = _hybrid_shape(cfg)
+    for j in range(nb):
+        for i, kind in enumerate(pat):
+            key = f"l{i}_{kind}"
+            yield (kind, layer_params(params["blocks"][key], j),
+                   None if cache is None
+                   else layer_params(cache["blocks"][key], j))
+    for i, lp in enumerate(params["rem"]):
+        yield (pat[i % len(pat)], lp,
+               None if cache is None else cache["rem"][i])
 
 
 # ---------------------------------------------------------------------------
 # Prefill: full-sequence forward that also materializes the decode cache
 # ---------------------------------------------------------------------------
 
-def _attn_layer_kv(cfg, p, x, positions):
-    """One decoder layer over the whole prompt; also returns its roped k/v."""
+def _attn_layer_kv(cfg, p, x, positions, *, window, attend):
+    """One decoder layer over the whole prompt; also returns its roped k/v.
+    The attention is :func:`~repro_torch.models.attention.prefill_attention`
+    through ``attend``."""
     hn = apply_norm(cfg, p["norm1"], x)
     q, k, v = qkv(cfg, p["attn"], hn)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = sdpa(q, k, v, q_positions=positions, k_positions=positions,
-               causal=True, window=None)
+    out = prefill_attention(q, k, v, causal=True, window=window,
+                            attend=attend)
     B, S = x.shape[:2]
     h = x + dense(p["attn"]["wo"], out.reshape(B, S, -1), cfg.dtype)
     return h + mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], h)), (k, v)
 
 
-def _kv_to_cache(k, v, capacity):
+def _kv_to_cache(k, v, capacity, window=None):
     """Keep the trailing min(S, capacity) positions, zero-padded to
-    ``capacity``."""
+    ``capacity``; a full ring (``window == capacity``) is rolled so that
+    absolute position p sits at slot ``p % capacity``."""
     S = k.shape[1]
     keep = min(S, capacity)
     k_t, v_t = k[:, S - keep:], v[:, S - keep:]
@@ -112,44 +186,119 @@ def _kv_to_cache(k, v, capacity):
         pad = (0, 0, 0, 0, 0, capacity - keep)
         k_t = torch.nn.functional.pad(k_t, pad)
         v_t = torch.nn.functional.pad(v_t, pad)
+    elif window is not None and capacity == window:
+        shift = S % capacity
+        k_t = torch.roll(k_t, shift, dims=1)
+        v_t = torch.roll(v_t, shift, dims=1)
     return k_t, v_t
 
 
+def _rec_layer_state(cfg, p, x, *, scan):
+    """One recurrent layer over the whole prompt; also returns its decode
+    state: the final RG-LRU state and the last ``conv1d_width - 1``
+    pre-convolution inputs."""
+    hn = apply_norm(cfg, p["norm1"], x)
+    u = hn @ p["rec"]["w_in_x"].to(cfg.dtype)
+    y, h_last = rglru.recurrent_block(cfg, p["rec"], hn, scan=scan)
+    h = x + y
+    h = h + mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], h))
+    return h, {"h": h_last, "conv": u[:, -(cfg.conv1d_width - 1):]}
+
+
 def prefill(cfg: ModelConfig, params: Params, tokens, capacity: int, *,
-            length: int | None = None):
+            length: int | None = None, attend=ops.attention,
+            scan=ops.rglru):
     """tokens [B, S] -> (last-token logits [B, 1, V], decode cache).
 
-    The cache is ``{"kv": {"k", "v"}: [L, B, capacity, Hkv, Dh], "idx"}``,
-    laid out as :func:`init_cache` lays it out.
+    The cache is laid out as :func:`init_cache` lays it out: dense
+    ``{"kv": {"k", "v"}: [L, B, capacity, Hkv, Dh], "idx"}``; hybrid
+    ``{"blocks", "rem", "idx"}``, whose attention layers keep a ring of
+    ``min(capacity, local_window)`` positions and whose recurrent layers
+    keep ``{"h", "conv"}``.
 
-    ``length`` (≤ S) marks the prompt as right-padded: logits are taken at
-    position ``length - 1`` and the cache resumes from position ``length``.
-    Pad positions are causally masked, so the valid outputs are unchanged.
+    ``length`` (≤ S, dense only) marks the prompt as right-padded: logits are
+    taken at position ``length - 1`` and the cache resumes from position
+    ``length``. Pad positions are causally masked, so the valid outputs are
+    unchanged; a recurrent state would fold the pad tokens in, so the hybrid
+    family refuses it, as the JAX package's docstring does.
+
+    ``attend`` and ``scan`` run the prefill attention (``[B, H, S, Dh]``
+    layout) and the RG-LRU recurrence: the kernels' dispatch in
+    :mod:`repro_torch.kernels.ops` unless the caller passes the plain
+    versions.
     """
-    require_dense(cfg)
+    require_ported(cfg)
     B, S = tokens.shape
     x = embed(cfg, params["embed"], tokens)
     positions = torch.arange(S, device=tokens.device)
-    idx = S if length is None else int(length)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, (k, v) = _attn_layer_kv(cfg, layer_params(params["layers"], i), x,
-                                   positions)
-        k, v = _kv_to_cache(k, v, capacity)
-        ks.append(k)
-        vs.append(v)
-    cache = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}, "idx": idx}
+    if cfg.family == "hybrid":
+        if length is not None:
+            raise ValueError("prefill(length=) pads the prompt, which the "
+                             "hybrid family's recurrent state would absorb")
+        win = min(capacity, cfg.local_window)
+        pat, nb, _ = _hybrid_shape(cfg)
+        blocks = {f"l{i}_{kind}": [] for i, kind in enumerate(pat)}
+        rem = []
+        for n, (kind, lp, _) in enumerate(hybrid_layers(cfg, params, None)):
+            if kind == "rec":
+                x, st = _rec_layer_state(cfg, lp, x, scan=scan)
+            else:
+                x, (k, v) = _attn_layer_kv(cfg, lp, x, positions, window=win,
+                                           attend=attend)
+                k, v = _kv_to_cache(k, v, win, win)
+                st = {"k": k, "v": v}
+            if n < nb * len(pat):
+                blocks[f"l{n % len(pat)}_{kind}"].append(st)
+            else:
+                rem.append(st)
+        cache = {"blocks": {key: _stack(sts) for key, sts in blocks.items()},
+                 "rem": rem, "idx": S}
+        idx = S
+    else:
+        idx = S if length is None else int(length)
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            x, (k, v) = _attn_layer_kv(cfg, layer_params(params["layers"], i),
+                                       x, positions, window=None,
+                                       attend=attend)
+            k, v = _kv_to_cache(k, v, capacity)
+            ks.append(k)
+            vs.append(v)
+        cache = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)},
+                 "idx": idx}
     x = apply_norm(cfg, params["final_norm"], x[:, idx - 1:idx])
     return unembed(cfg, params["embed"], x), cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, *,
                device: str | torch.device = "cuda") -> Params:
-    """Empty decode cache ``{"kv": {"k", "v"}, "idx": 0}`` with k/v
-    ``[L, batch, capacity, Hkv, Dh]`` in ``cfg.dtype``."""
-    require_dense(cfg)
-    kv = init_kv_cache(cfg, cfg.n_layers * batch, capacity,
-                       device=resolve_device(device))
+    """Empty decode cache in ``cfg.dtype``: dense ``{"kv": {"k", "v"},
+    "idx": 0}`` with k/v ``[L, batch, capacity, Hkv, Dh]``; hybrid
+    ``{"blocks", "rem", "idx": 0}`` with each block leaf stacked ``[n_blocks,
+    batch, ...]``: attention rings k/v ``[batch, min(capacity,
+    local_window), Hkv, Dh]``, recurrent state h ``[batch, R]`` and conv
+    ``[batch, conv1d_width - 1, R]``."""
+    require_ported(cfg)
+    dev = resolve_device(device)
+    if cfg.family == "hybrid":
+        pat, nb, rem = _hybrid_shape(cfg)
+        win = min(capacity, cfg.local_window)
+
+        def state(kind, n):
+            if kind == "rec":
+                st = rglru.init_recurrent_state(cfg, n * batch, device=dev)
+            else:
+                st = init_kv_cache(cfg, n * batch, win, device=dev)
+            return {k: t.reshape(n, batch, *t.shape[1:])
+                    for k, t in st.items()}
+
+        return {"blocks": {f"l{i}_{kind}": state(kind, nb)
+                           for i, kind in enumerate(pat)},
+                "rem": [{k: t[0] for k, t in
+                         state(pat[i % len(pat)], 1).items()}
+                        for i in range(rem)],
+                "idx": 0}
+    kv = init_kv_cache(cfg, cfg.n_layers * batch, capacity, device=dev)
     return {"kv": {name: t.reshape(cfg.n_layers, batch, *t.shape[1:])
                    for name, t in kv.items()},
             "idx": 0}
@@ -164,21 +313,38 @@ def decode_step(cfg: ModelConfig, params: Params, tokens, cache):
 
     ``cache["idx"]`` is the absolute position of this token: one for the
     batch, or a ``[B]`` tensor, one per slot (the slot layout of
-    :func:`repro_torch.serve.batch.init_slot_cache`). The K/V leaves are
-    written in place; the returned cache holds them and ``idx + 1``.
+    :func:`repro_torch.serve.batch.init_slot_cache`). Every cache leaf is
+    written in place; the returned cache holds them and ``idx + 1``. The
+    hybrid family's attention layers write their rings at ``idx %
+    capacity``.
     """
-    require_dense(cfg)
+    require_ported(cfg)
     B = tokens.shape[0]
     x = embed(cfg, params["embed"], tokens)
     idx = torch.as_tensor(cache["idx"], dtype=torch.int32,
                           device=tokens.device).reshape(-1).expand(B)
-    kv = cache["kv"]
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
-        hn = apply_norm(cfg, lp["norm1"], x)
-        x = x + decode_self_attention(
-            cfg, lp["attn"], hn, {"k": kv["k"][i], "v": kv["v"][i]}, idx)
-        x = x + mlp(cfg, lp["mlp"], apply_norm(cfg, lp["norm2"], x))
+    if cfg.family == "hybrid":
+        for kind, lp, st in hybrid_layers(cfg, params, cache):
+            hn = apply_norm(cfg, lp["norm1"], x)
+            if kind == "rec":
+                y, new = rglru.recurrent_block_step(cfg, lp["rec"], hn, st)
+                for name, t in new.items():
+                    st[name].copy_(t)
+            else:
+                y = decode_self_attention(cfg, lp["attn"], hn, st, idx,
+                                          window=cfg.local_window)
+            x = x + y
+            x = x + mlp(cfg, lp["mlp"], apply_norm(cfg, lp["norm2"], x))
+        new_cache = {"blocks": cache["blocks"], "rem": cache["rem"]}
+    else:
+        kv = cache["kv"]
+        for i in range(cfg.n_layers):
+            lp = layer_params(params["layers"], i)
+            hn = apply_norm(cfg, lp["norm1"], x)
+            x = x + decode_self_attention(
+                cfg, lp["attn"], hn, {"k": kv["k"][i], "v": kv["v"][i]}, idx)
+            x = x + mlp(cfg, lp["mlp"], apply_norm(cfg, lp["norm2"], x))
+        new_cache = {"kv": kv}
     x = apply_norm(cfg, params["final_norm"], x)
-    return unembed(cfg, params["embed"], x), {"kv": kv,
+    return unembed(cfg, params["embed"], x), {**new_cache,
                                               "idx": cache["idx"] + 1}

@@ -11,17 +11,20 @@ The device-side ops (:func:`write_prefill`, :func:`tail_targets`,
 :func:`tail_targets_multi`, :func:`scatter_tokens` — defined beside the
 verify step in :mod:`repro_torch.models.paged` —, :func:`copy_block`) are
 PyTorch and write the pool in place where the JAX package returns a new
-one. The speculative draft keeps a dense *slot layout* instead
-(:func:`init_slot_cache`, :func:`write_slot`): k/v ``[L, max_batch,
-capacity, Hkv, Dh]`` with a per-slot ``idx`` vector. The block *allocator*
-(:class:`BlockAllocator`) and the shared-prefix index
-(:class:`PrefixIndex`) are host-side numpy, copied from
+one. The continuous mode and the speculative draft keep a dense *slot
+layout* instead (:func:`init_slot_cache`, :func:`write_slot`,
+:func:`gather_slot`): every slot reserves a whole cache of the model's own
+tree (dense k/v ``[L, max_batch, capacity, Hkv, Dh]``; the hybrid family's
+``blocks``/``rem`` of rings and recurrent state) with a per-slot ``idx``
+vector. The block *allocator* (:class:`BlockAllocator`) and the
+shared-prefix index (:class:`PrefixIndex`) are host-side numpy, copied from
 ``repro.serve.batch``: refcounted blocks let requests that share a prompt
 prefix alias the same physical block from several slots' tables, and
 :meth:`BlockAllocator.fork_for_write` forks a shared tail block into a fresh
 exclusive one before any slot appends to it.
 
-Only the attention-KV layout ``{"kv": {"k", "v"}}`` is paged; the JAX
+Only the attention-KV layout ``{"kv": {"k", "v"}}`` is paged, and the slot
+axes of the two slot layouts are written out (``SLOT_AXES``); the JAX
 package's generic axis discovery (``cache_batch_axes`` /
 ``cache_capacity_axes``) waits until a family needs it.
 """
@@ -103,11 +106,35 @@ def copy_block(pool_data, src: int, dst: int):
     return pool_data
 
 
+# slot axis of each per-slot subtree of a slot-layout cache, written out
+# where the JAX package finds it by abstract evaluation
+# (``repro.models.cache_batch_axes``): the layer- or block-stacked leaves
+# carry the slot on axis 1, the hybrid family's ``rem`` leaves on axis 0
+SLOT_AXES = {"kv": 1, "blocks": 1, "rem": 0}
+
+
+def _map_slots(fn, slot_cache, *others):
+    """``fn(leaf, slot_axis, *other leaves)`` over every per-slot leaf of
+    ``slot_cache`` (all but ``idx``), with the matching leaves of
+    ``others``; returns the results in the same tree."""
+    def walk(axis, leaf, *rest):
+        if isinstance(leaf, dict):
+            return {k: walk(axis, v, *(r[k] for r in rest))
+                    for k, v in leaf.items()}
+        if isinstance(leaf, list):
+            return [walk(axis, *vs) for vs in zip(leaf, *rest)]
+        return fn(leaf, axis, *rest)
+
+    return {name: walk(SLOT_AXES[name], leaf, *(o[name] for o in others))
+            for name, leaf in slot_cache.items() if name != "idx"}
+
+
 def init_slot_cache(cfg: ModelConfig, max_batch: int, capacity: int, *,
                     device):
     """Empty slot-layout cache: :func:`repro_torch.models.init_cache` for
-    ``max_batch`` streams, k/v ``[L, max_batch, capacity, Hkv, Dh]``, with
-    ``idx`` a per-slot ``[max_batch]`` int32 vector."""
+    ``max_batch`` streams (dense: k/v ``[L, max_batch, capacity, Hkv, Dh]``;
+    hybrid: the ``blocks``/``rem`` tree), with ``idx`` a per-slot
+    ``[max_batch]`` int32 vector."""
     cache = init_cache(cfg, max_batch, capacity, device=device)
     cache["idx"] = torch.zeros((max_batch,), dtype=torch.int32,
                                device=device)
@@ -115,14 +142,21 @@ def init_slot_cache(cfg: ModelConfig, max_batch: int, capacity: int, *,
 
 
 def write_slot(slot_cache, request_cache, i: int):
-    """Insert a batch-1 prefilled cache (k/v ``[L, 1, capacity, Hkv, Dh]``,
-    scalar ``idx``) into slot ``i`` of the slot-layout cache, in place: the
-    whole capacity row is overwritten, so nothing of the slot's previous
-    request survives."""
-    for name, leaf in slot_cache["kv"].items():
-        leaf[:, i] = request_cache["kv"][name][:, 0].to(leaf.dtype)
+    """Insert a batch-1 prefilled cache (scalar ``idx``) into slot ``i`` of
+    the slot-layout cache, in place: every per-slot leaf's slot row is
+    overwritten, so nothing of the slot's previous request survives."""
+    _map_slots(lambda big, ax, small: big.select(ax, i).copy_(
+        small.select(ax, 0)), slot_cache, request_cache)
     slot_cache["idx"][i] = int(request_cache["idx"])
     return slot_cache
+
+
+def gather_slot(slot_cache, i: int):
+    """Slot ``i`` of a slot-layout cache as a batch-1 request cache (a copy,
+    with a scalar ``idx``)."""
+    return {**_map_slots(lambda big, ax: big.narrow(ax, i, 1).clone(),
+                         slot_cache),
+            "idx": int(slot_cache["idx"][i])}
 
 
 class BlockAllocator:

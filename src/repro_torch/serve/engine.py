@@ -1,7 +1,10 @@
-"""Serving engine: paged KV over the block-native decode path.
+"""Serving engine: paged KV over the block-native decode path, and
+slot-based continuous batching.
 
-The counterpart of ``repro.serve.engine.ServeEngine`` in ``mode="paged"``
-with ``kv_impl="kernel"``. A :class:`~repro_torch.serve.batch.BlockPool`
+The counterpart of ``repro.serve.engine.ServeEngine`` in two of its modes.
+
+``mode="paged"`` (the port's default) with ``kv_impl="kernel"``: a
+:class:`~repro_torch.serve.batch.BlockPool`
 owns the physical ``[num_blocks + 1, block_size, L, Hkv, Dh]`` KV pools;
 each request holds only the blocks its tokens occupy, mapped through a
 per-slot block table. Admission is gated on *free blocks*, not on slot
@@ -25,12 +28,24 @@ through the block table with the CUDA kernel
 :func:`repro_torch.kernels.paged_attention_multi`, and after each chunk the
 blocks past every slot's accepted length are trimmed back to the pool.
 
+``mode="continuous"``: a :class:`~repro_torch.serve.scheduler.SlotScheduler`
+owns ``max_batch`` decode slots, each reserving a whole cache of the
+model's own layout (:func:`~repro_torch.serve.batch.init_slot_cache`); each
+queued request is prefilled on its own (exact prompt length, batch 1) and
+its cache written into a free slot mid-decode. Decode runs
+``decode_chunk`` tokens per dispatch
+(:func:`~repro_torch.serve.steps.make_fused_decode`) with EOS and budget
+masking on the device, and one host read per chunk. This is the mode that
+serves the hybrid family (``recurrentgemma-2b``): its prefill runs the CUDA
+flash-attention and RG-LRU kernels (:mod:`repro_torch.kernels.ops`), as
+every prefill of the port does.
+
 ``run()`` drains the queue to ``{rid: tokens}``; ``stream()`` yields
 ``(rid, delta_tokens, done)`` at admission and at every chunk boundary.
 
-Not ported yet (``ROADMAP.md``): the continuous and cohort modes, the
-``"reference"`` and ``"pallas"`` read paths and pow2 prefill buckets.
-Asking for them raises ``NotImplementedError``.
+Not ported yet (``ROADMAP.md``): the cohort mode, the ``"reference"`` and
+``"pallas"`` read paths and pow2 prefill buckets. Asking for them raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -41,15 +56,18 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import require_dense, tree_to
+from repro_torch.models.transformer import compute_params, require_ported
 from repro_torch.obs.recorder import NullRecorder
 from repro_torch.serve.batch import (BlockPool, PrefixIndex, copy_block,
                                      init_slot_cache, write_prefill,
                                      write_slot)
 from repro_torch.serve.scheduler import Request, SlotScheduler
 from repro_torch.serve.spec import SpecConfig, make_spec_decode
-from repro_torch.serve.steps import make_paged_kernel_decode, make_prefill_step
+from repro_torch.serve.steps import (make_fused_decode,
+                                     make_paged_kernel_decode,
+                                     make_prefill_step)
 
+PAGED_FAMILIES = ("dense", "vlm", "moe")
 KV_IMPLS = ("auto", "kernel")
 
 
@@ -69,7 +87,7 @@ def _check_draft(cfg: ModelConfig, dcfg: ModelConfig) -> None:
             "speculative draft needs a full-attention KV family "
             "(rewind = idx overwrite); got "
             f"family={dcfg.family!r} window={dcfg.window!r}")
-    require_dense(dcfg)
+    require_ported(dcfg)
 
 
 class ServeEngine:
@@ -80,35 +98,54 @@ class ServeEngine:
                  kv_impl: str = "auto", share_prefix: bool = True,
                  speculate: SpecConfig | None = None, recorder=None,
                  device: str | torch.device = "cuda"):
+        if mode not in ("continuous", "cohort", "paged"):
+            raise ValueError(
+                f"mode must be continuous|cohort|paged, got {mode!r}")
         if speculate is not None and mode != "paged":
             raise ValueError("speculate=SpecConfig(...) requires mode='paged'")
-        if mode != "paged":
+        if mode == "cohort":
             raise NotImplementedError(
-                f"mode={mode!r}: the port serves mode='paged' only "
-                "(ROADMAP.md, queue 1, paged-mode gaps)")
-        if kv_impl not in KV_IMPLS:
-            raise NotImplementedError(
-                f"kv_impl={kv_impl!r}: the port has the 'kernel' read path "
-                "only, which 'auto' resolves to (ROADMAP.md, queue 1, "
-                "paged-mode gaps)")
-        require_dense(cfg)
+                "mode='cohort': the port serves the paged and continuous "
+                "modes (ROADMAP.md, queue 1, serving gaps)")
+        if mode == "paged":
+            if cfg.family not in PAGED_FAMILIES or cfg.window is not None:
+                raise ValueError(
+                    "paged mode needs a full-attention KV-cache family "
+                    f"(one of {PAGED_FAMILIES}, window=None); got "
+                    f"family={cfg.family!r} window={cfg.window!r}")
+            if kv_impl not in KV_IMPLS:
+                raise NotImplementedError(
+                    f"kv_impl={kv_impl!r}: the port has the 'kernel' read "
+                    "path only, which 'auto' resolves to (ROADMAP.md, queue "
+                    "1, serving gaps)")
+        require_ported(cfg)
         if speculate is not None:
             _check_draft(cfg, speculate.draft_cfg)
         self.device = resolve_device(device)
         # host-side only: the recorder sees counters and spans at the chunk
         # boundaries the loop already crosses. Only the no-op recorder is
-        # ported so far (ROADMAP.md, queue 1, paged-mode gaps: obs).
+        # ported so far (ROADMAP.md, queue 1, serving gaps: obs).
         self.recorder = NullRecorder() if recorder is None else recorder
-        # f32 parameters are cast to cfg.dtype at every use in the JAX
-        # package; casting them once here is the same arithmetic
         self.cfg = cfg
-        self.params = tree_to(params, device=self.device, dtype=cfg.dtype)
+        self.params = compute_params(cfg, params, self.device)
         self.capacity, self.max_batch = capacity, max_batch
         self.eos_id, self.mode, self.decode_chunk = eos_id, mode, decode_chunk
         self.block_size = block_size
-        self.kv_impl = "kernel"
         self.scheduler = SlotScheduler(max_batch)
         self._prefill = make_prefill_step(cfg, capacity)
+        self.pool: BlockPool | None = None
+        self.kv_impl: str | None = None   # the paged read path
+        self.prefix: PrefixIndex | None = None
+        self.spec = speculate
+        self._dcache = None  # the draft's slot cache, made per drain
+        self._next_rid = 0
+        self._streamed: dict[int, int] = {}
+        self.stats: dict = {}
+        self.completed: dict[int, Request] = {}
+        if mode == "continuous":
+            self._fused_decode = make_fused_decode(cfg, decode_chunk, eos_id)
+            return
+        self.kv_impl = "kernel"
         if num_blocks is None:
             # the KV memory a dense engine of this max_batch/capacity would
             # reserve up front
@@ -118,7 +155,6 @@ class ServeEngine:
                               capacity=capacity, device=self.device)
         self._paged_decode = make_paged_kernel_decode(
             cfg, block_size, decode_chunk, eos_id)
-        self.spec = speculate
         # positions one dispatch can advance a slot: decode_chunk serially,
         # or rounds x (k + 1) verify rows under speculation. Emitted rows
         # only ever read positions below idx + adv, so this is also the
@@ -128,25 +164,20 @@ class ServeEngine:
             dcfg = speculate.draft_cfg
             rounds = speculate.rounds_for(decode_chunk)
             self._adv = rounds * (speculate.k + 1)
-            self._draft_params = tree_to(speculate.draft_params,
-                                         device=self.device,
-                                         dtype=dcfg.dtype)
+            self._draft_params = compute_params(dcfg, speculate.draft_params,
+                                                self.device)
             self._draft_prefill = make_prefill_step(dcfg, capacity)
             self._spec_decode = make_spec_decode(
                 cfg, dcfg, block_size, speculate.k, rounds, eos_id)
-        self._dcache = None  # the draft's slot cache, made per drain
         self.prefix = PrefixIndex(self.pool.alloc) if share_prefix else None
-        self._next_rid = 0
-        self._streamed: dict[int, int] = {}
-        self.stats: dict = {}
-        self.completed: dict[int, Request] = {}
 
     # -- request intake ------------------------------------------------------
 
     def submit(self, prompt, max_new_tokens: int = 16) -> int:
         prompt = np.asarray(prompt, np.int32)
         total = len(prompt) + max_new_tokens
-        if (total > self.capacity
+        if self.mode == "paged" and (
+                total > self.capacity
                 or self.pool.blocks_for(total) > self.pool.num_blocks):
             self.recorder.counter_add("serve_submit_rejects")
             raise ValueError(
@@ -199,8 +230,80 @@ class ServeEngine:
         requests."""
         sched = self.scheduler
         for i, _ in sorted(sched.occupied(), key=lambda t: -t[1].admit_seq):
-            self.pool.release(i)
+            if self.pool is not None:
+                self.pool.release(i)
             sched.preempt(i)
+
+    # -- continuous batching -------------------------------------------------
+
+    def _stream_continuous(self):
+        sched, B = self.scheduler, self.max_batch
+        cache = init_slot_cache(self.cfg, B, self.capacity,
+                                device=self.device)
+        tok = np.zeros((B,), np.int32)
+        live = np.zeros((B,), bool)
+        remaining = np.zeros((B,), np.int32)
+        stats = {"prefills": 0, "decode_dispatches": 0, "decode_steps": 0,
+                 "emitted_tokens": 0, "peak_concurrency": 0}
+
+        def finish(i: int) -> Request:
+            req = sched.release(i)
+            req.finish_s = time.perf_counter()
+            live[i] = False
+            remaining[i] = 0
+            self.completed[req.rid] = req
+            self.recorder.counter_add("serve_finished")
+            return req
+
+        try:
+            yield from self._continuous_loop(cache, tok, live, remaining,
+                                             stats, finish)
+        finally:
+            self.stats = stats
+            self._evict_in_flight()
+
+    def _continuous_loop(self, cache, tok, live, remaining, stats, finish):
+        sched, dev = self.scheduler, self.device
+        while sched.has_work():
+            # admission: prefill queued requests into free slots, mid-decode
+            for i, req in sched.admit():
+                first, req_cache = self._prefill_first_token(req)
+                stats["prefills"] += 1
+                stats["emitted_tokens"] += 1   # the prefill-produced token
+                if req.add_token(first, self.eos_id):
+                    finish(i)   # prefill token was EOS or budget == 1
+                else:
+                    write_slot(cache, req_cache, i)
+                    tok[i], live[i] = first, True
+                    remaining[i] = req.remaining
+                yield from self._emit([req])
+            stats["peak_concurrency"] = max(stats["peak_concurrency"],
+                                            len(sched.occupied()))
+            if not live.any():
+                continue   # the queue may still hold work
+            with self.recorder.span("decode_chunk", steps=self.decode_chunk):
+                tok_d, cache, live_d, remaining_d, tokens, emitted = \
+                    self._fused_decode(
+                        self.params, torch.as_tensor(tok, device=dev), cache,
+                        torch.as_tensor(live, device=dev),
+                        torch.as_tensor(remaining, device=dev))
+                # one host read per chunk: the chunk's tokens, emit masks
+                # and the slots' carried state, packed into one int32 array
+                c = tokens.shape[0]
+                host = torch.cat([
+                    tokens, emitted.to(torch.int32),
+                    torch.stack([tok_d, live_d.to(torch.int32),
+                                 remaining_d])]).cpu().numpy()
+            # in place: finish() closes over these same arrays
+            tok[:], live[:], remaining[:] = host[2 * c:]
+            tokens, emitted = host[:c], host[c:2 * c].astype(bool)
+            stats["decode_dispatches"] += 1
+            stats["decode_steps"] += self.decode_chunk
+            stats["emitted_tokens"] += int(emitted.sum())
+            reqs = [r for _, r in sched.occupied()]
+            for i in sched.record_decode(tokens, emitted, self.eos_id):
+                finish(i)
+            yield from self._emit(reqs)
 
     # -- paged KV ------------------------------------------------------------
 
@@ -469,7 +572,10 @@ class ServeEngine:
         already streamed. Abandoning the generator mid-drain evicts the
         in-flight requests back to the queue; a later ``run()``/``stream()``
         resumes where it stopped."""
-        yield from self._stream_paged()
+        if self.mode == "continuous":
+            yield from self._stream_continuous()
+        else:
+            yield from self._stream_paged()
 
     def run(self) -> dict[int, list[int]]:
         """Drain the queue; returns {rid: generated tokens}."""

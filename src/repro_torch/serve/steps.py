@@ -1,13 +1,15 @@
-"""Serving step functions: prefill, the dense slot decode step (the
-speculative draft's) and the paged decode chunk.
+"""Serving step functions: prefill, single-token decode, the slot decode
+step and its fused chunk (continuous batching and the speculative draft),
+and the paged decode chunk.
 
-:func:`make_paged_kernel_decode` is the counterpart of the JAX package's
-``make_paged_kernel_decode``: ``decode_chunk`` greedy tokens for every slot
-per call, with EOS and budget masking applied on the device so finished
-slots stop emitting without a host round trip per token. The JAX package
-fuses the chunk into one ``lax.scan`` program with donated buffers; here it
-is a Python loop over :func:`repro_torch.models.paged.paged_decode_step`
-that updates the pool in place and reads nothing back to the host.
+:func:`make_fused_decode` and :func:`make_paged_kernel_decode` are the
+counterparts of the JAX package's functions of those names:
+``decode_chunk`` greedy tokens for every slot per call, with EOS and budget
+masking applied on the device so finished slots stop emitting without a
+host round trip per token. The JAX package fuses the chunk into one
+``lax.scan`` program with donated buffers; here it is a Python loop over the
+decode step that updates the cache or pool in place and reads nothing back
+to the host.
 
 The tables handed to the decode chunk may alias a physical page across
 slots (shared-prefix copy-on-write). Reads are safe; the tail append writes
@@ -32,16 +34,62 @@ def make_prefill_step(cfg: ModelConfig, capacity: int):
     return step
 
 
+def make_decode_step(cfg: ModelConfig):
+    """``(params, tokens [B, 1], cache) -> (next_tok [B, 1], logits,
+    cache)``: one greedy token for a batch at one position."""
+    def step(params, tokens, cache):
+        logits, cache = decode_step(cfg, params, tokens, cache)
+        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        return next_tok[:, None], logits, cache
+    return step
+
+
 def make_slot_decode_step(cfg: ModelConfig):
     """Greedy one-token decode of every slot of a slot-layout cache
     (:func:`repro_torch.serve.batch.init_slot_cache`): ``(params, tok [B],
     cache) -> (next_tok [B], cache)``, each slot at its own
-    ``cache["idx"][slot]``, the K/V written in place. The JAX package vmaps
-    ``decode_step`` over the slots; here they are one batch."""
+    ``cache["idx"][slot]``, the cache written in place (the hybrid family's
+    rings at ``idx % capacity``, its recurrent state per slot). The JAX
+    package vmaps ``decode_step`` over the slots; here they are one batch,
+    and every per-slot computation reads only its own slot's row."""
     def step(params, tok, cache):
         logits, cache = decode_step(cfg, params, tok[:, None], cache)
         return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), cache
     return step
+
+
+def make_fused_decode(cfg: ModelConfig, decode_chunk: int,
+                      eos_id: int | None):
+    """Continuous-batching decode: ``decode_chunk`` greedy tokens for every
+    slot of a slot-layout cache per call.
+
+    Signature: ``(params, tok [B], cache, live [B] bool, remaining [B]) ->
+    (tok, cache, live, remaining, tokens [chunk, B], emitted [chunk, B])``.
+    A slot is ``live`` while it is occupied, has budget left and has not
+    emitted EOS; ``emitted[s, i]`` marks ``tokens[s, i]`` as a real
+    generation for slot ``i``. Dead slots keep decoding (their results are
+    masked out, and their slot is overwritten whole at the next admission),
+    as in the JAX package's scan. The cache is updated in place and
+    returned.
+    """
+    slot_step = make_slot_decode_step(cfg)
+
+    def chunk(params, tok, cache, live, remaining):
+        tokens, emitted = [], []
+        for _ in range(decode_chunk):
+            next_tok, cache = slot_step(params, tok, cache)
+            emit = live
+            remaining = torch.where(emit, remaining - 1, remaining)
+            live = live & (remaining > 0)
+            if eos_id is not None:
+                live = live & ~(emit & (next_tok == eos_id))
+            tok = torch.where(emit, next_tok, tok)
+            tokens.append(next_tok)
+            emitted.append(emit)
+        return (tok, cache, live, remaining, torch.stack(tokens),
+                torch.stack(emitted))
+
+    return chunk
 
 
 def make_paged_kernel_decode(cfg: ModelConfig, block_size: int,

@@ -301,4 +301,5 @@ def test_kernel_oracles_registry_self_test():
     assert "ghost_kernel: no ghost_kernel_launch entry point in csrc/" \
         in problems
     assert check_kernel_oracles({}) == [
-        "csrc/paged_attention.cu has no KERNEL_ORACLES entry"]
+        f"csrc/{name}.cu has no KERNEL_ORACLES entry"
+        for name in ("flash_attention", "paged_attention", "rglru_scan")]

@@ -239,7 +239,7 @@ def test_stream_deltas_and_unported_options(model):
     assert dones == set(rids) and [len(seen[r]) for r in rids] == [5, 3]
     with pytest.raises(ValueError, match="cache positions"):
         eng.submit(np.arange(30), 5)
-    for kw in ({"mode": "continuous"}, {"kv_impl": "reference"},
+    for kw in ({"mode": "cohort"}, {"kv_impl": "reference"},
                {"kv_impl": "pallas"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             repro_torch.serve.ServeEngine(tcfg, tparams, device="cpu", **kw)
