@@ -23,7 +23,10 @@ Phases, in order; any failure exits non-zero (no phase is caught):
 6. profile one more short drain with ``torch.profiler``: the card's busy
    share of the wall time and the kernels that took it; the trace must
    show the decode and flash kernels as often as their wrappers counted,
-   and the window kernel and the scan not at all;
+   and the other kernels not at all. The trace window opens with a burst
+   of sacrificial kernels and closes after idle time, since the profiler
+   can drop a window's earliest and latest records (every profiled drain:
+   phases 6, 7b, 10 and 11);
 7. speculative decoding: (a) hold the verify-window kernel against its
    plain version at the speculative path's shapes (bf16, windows crossing
    a page, a dead slot, rows past the table's coverage, aliased pages), at
@@ -59,15 +62,30 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    the scan once per recurrent layer (18), and nothing else. The streams
    are replayed teacher-forced with both kernels and with both plain
    versions, and a profiled drain must show both kernels under their own
-   names as often as their wrappers counted.
+   names as often as their wrappers counted;
+11. (a) hold the WKV scan kernel against its plain version at
+   ``rwkv6-1.6b``'s prefill shape (B 1, a 2 300-token prompt, 32 heads of
+   64) with bf16 and f32 inputs, at its decode step (B 4, S 1, from a
+   nonzero state), at Dh 128 with S 37, and through strided views, and time
+   each; then serve full-width ``rwkv6-1.6b`` (random bf16 weights from a
+   fixed ``torch.Generator``) through ``ServeEngine(mode="continuous")`` on
+   phase 10's workload. Every prefill and every decode step must launch the
+   WKV kernel once per layer (24), and the plain WKV recurrence must not run.
+   The streams are replayed teacher-forced, and every layer's WKV output is
+   held in f32 to the plain version's under a stated error model whose
+   limit has at least twice the measured rounding noise (plain version vs
+   f64); a profiled drain must show the kernel as often as its wrapper
+   counted.
 
-Prints a ``{"kernels": [...]}`` line naming all four kernels, then the
+Prints a ``{"kernels": [...]}`` line naming all five kernels, then the
 card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``. Needs a CUDA card
 and the repository's ``src/`` beside this file.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import json
 import os
 import re
@@ -88,12 +106,28 @@ SHARED_PREFIX = 128
 CAPACITY = 336          # 21 blocks: the longest prompt plus 32 new tokens
 NUM_BLOCKS = 72         # less than 8 slots' prompts need: forces preemption
 # csrc/<name>.cu, one nvcc each, all started together
-KERNEL_SOURCES = ("paged_attention", "flash_attention", "rglru_scan")
+KERNEL_SOURCES = ("paged_attention", "flash_attention", "rglru_scan",
+                  "wkv6_scan")
 # each kernel wrapper's __global__ function, as a profiler trace names it
 KERNEL_SYMBOLS = {"paged_attention": "paged_attention_decode_kernel",
                   "paged_attention_multi": "paged_attention_multi_kernel",
                   "flash_attention": "flash_attention_kernel",
-                  "rglru_scan": "rglru_scan_kernel"}
+                  "rglru_scan": "rglru_scan_kernel",
+                  "wkv6_scan": "wkv6_scan_kernel"}
+# The profiled drains' trace window. In a window after a process's first,
+# the profiler can drop the earliest device records as lying outside the
+# window ("Out-of-range" in its log), however long the window has been open
+# before them: none, one, or hundreds (1 to 643 in this script's windows
+# on the H100). It drops the latest ones by time: a window that closed on
+# the drain's last kernel lost 13, then 5, of its 576 WKV launches, while
+# with 0.2-0.5 s of idle time after the drain every drain was kept (a burst
+# of spins after that idle time lost 0 to all 2 000 of its records). So
+# each window opens with a burst of TRACE_BURST sacrificial spin kernels
+# (torch.cuda._sleep), run to their end before the drain starts, which the
+# early drops eat into (how far is reported), and closes with TRACE_TAIL_S
+# of idle time, which the late drops eat into. The check itself is that
+# the trace shows every kernel exactly as often as its wrapper counted.
+TRACE_BURST, TRACE_TAIL_S, TRACE_SPIN = 2000, 0.5, "spin_kernel"
 # phase 7: truncated self-speculation. The target's layers past the first
 # SPEC_DRAFT_LAYERS are scaled by SPEC_DAMP (the JAX package's serving
 # benchmark builds its speculative pair the same way) and the draft is the
@@ -147,6 +181,27 @@ TOL_RGLRU_BF16 = 5e-2
 # |v|, ~6e-3 at the rows of shape (a) that average ~2 000 keys. Phase 8
 # checks that a library call without the window mask fails it.
 LIB_P_RTOL = 2 ** -7
+
+# phase 11: continuous serving of full-width rwkv6-1.6b, every WKV
+# recurrence of its prefill and decode on the wkv6_scan kernel, on the
+# workload of phase 10
+SSM_ARCH = "rwkv6-1.6b"
+# WKV scan, kernel vs plain version (phase 11a). Both carry the state in f32
+# and round its update the same way, so the final states must be equal bit
+# for bit. y: both compute each column's Dh-term dot product in f32, summed
+# in other orders, so each rounding moves y by at most 2**-24 of one term;
+# M, the recurrence run on |inputs|, bounds the terms' summed magnitude.
+# The limit adds 16 such units of M to the file's limits: TOL_F32 +
+# WKV_UNITS M in f32, BF16_ATOL + BF16_RTOL |plain| + WKV_UNITS M when y is
+# rounded to bf16.
+WKV_UNITS = 16 * 2 ** -24
+# The teacher-forced replay (phase 11) compares each layer's WKV output y in
+# f32, kernel against plain version, on the kernel path's own inputs, under
+# the same error model and limit: the final states must be equal bit for
+# bit, so the two y differ only by their dot products' order, within
+# WKV_UNITS M element by element. The plain version against the same
+# recurrence in f64 is the rounding noise, which must stay within half that
+# limit (2x headroom).
 
 
 def card_line() -> str:
@@ -370,10 +425,10 @@ def serve(torch, cfg, params, device, speculate=None):
     (engine, prompts, streams, metrics)."""
     from repro_torch.serve import ServeEngine
 
-    eng = ServeEngine(cfg, params, capacity=CAPACITY, max_batch=MAX_BATCH,
-                      block_size=BLOCK_SIZE, num_blocks=NUM_BLOCKS,
-                      decode_chunk=DECODE_CHUNK, speculate=speculate,
-                      device=device)
+    eng = ServeEngine(cfg, params, mode="paged", capacity=CAPACITY,
+                      max_batch=MAX_BATCH, block_size=BLOCK_SIZE,
+                      num_blocks=NUM_BLOCKS, decode_chunk=DECODE_CHUNK,
+                      speculate=speculate, device=device)
     prompts = workload(cfg.vocab)
     streams, metrics = drain(torch, eng, prompts, MAX_NEW)
     return eng, prompts, streams, metrics
@@ -475,14 +530,61 @@ def check_replay(torch, cfg, params, prompts, streams, device):
     return diff, gap, agree
 
 
+def check_trace(rows, counted, want, tag):
+    """The traced-launch check of a profiled drain. ``rows`` are the
+    trace's device events other than the window's spins, as (name, ms,
+    count); ``counted`` the wrappers' counts; ``want`` the launches the
+    drain's path must make of each kernel. Every wrapper must have counted
+    exactly ``want``, and the trace must show each kernel under its own name
+    exactly as often (a lost record, a kernel of another path, or a plain
+    version run in a kernel's place shows as a count that is off). Returns
+    the traced counts."""
+    n_traced = {name: sum(c for key, _, c in rows if sym in key)
+                for name, sym in KERNEL_SYMBOLS.items()}
+    check_counts(f"{tag} profiled drain, counted", counted, want)
+    check_counts(f"{tag} profiled drain, traced", n_traced, want)
+    return n_traced
+
+
+def warm_up_profiler(torch):
+    """Start and stop the profiler once on a trivial kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+
+
+def spin_burst(torch):
+    """``TRACE_BURST`` spin kernels, run to their end."""
+    for _ in range(TRACE_BURST):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
+def device_records(torch, prof):
+    """The trace's device-side records (kernels, copies), not the runtime
+    calls on the host that launched them, as (name, duration in ns). Read
+    from the profiler's raw result, ``prof.profiler.kineto_results``, which
+    is not public torch API: building the per-event Python objects of
+    ``prof.events()`` took seconds a drain. Where a torch release lacks
+    it, the events are read through ``prof.events()`` instead."""
+    cuda = torch.autograd.DeviceType.CUDA
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if raw is not None and hasattr(raw, "events"):
+        return [(e.name(), e.duration_ns()) for e in raw.events()
+                if e.device_type() == cuda]
+    return [(e.name, int(e.time_range.elapsed_us() * 1e3))
+            for e in prof.events() if e.device_type == cuda]
+
+
 def profile_drain(torch, eng, vocab, want_fn, tag="[6]"):
-    """Phase 6 (and 7b, 10): where the time goes. One more drain (8
+    """Phase 6 (and 7b, 10, 11): where the time goes. One more drain (8
     requests of 64 prompt tokens, one decode chunk each) under
     ``torch.profiler``: wall time, the card's busy time, and the kernels
     that took it. ``want_fn(stats)`` gives the launches this drain's path
-    must make of each kernel (its stats in hand); every kernel's wrapper
-    must count exactly that, the trace must show each kernel under its own
-    name as often, and the kernels of other paths not at all."""
+    must make of each kernel (its stats in hand); :func:`check_trace` holds
+    the wrappers' counts and the trace to it."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(SEED + 1)
@@ -491,41 +593,47 @@ def profile_drain(torch, eng, vocab, want_fn, tag="[6]"):
                    max_new_tokens=DECODE_CHUNK + 1)
     torch.cuda.synchronize()
     reset_counts()
+    t_trace = time.perf_counter()
     # the card's activity only: the busy share and the kernel counts need
     # nothing else, and the host's operator events would double the trace
     # and its parsing time
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        spin_burst(torch)
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(TRACE_TAIL_S)
     counted = read_counts()
-    # device-side events only (kernels, copies), not the runtime calls on
-    # the host that launched them
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    t_parse = time.perf_counter()
+    spins, by_name = 0, {}
+    for name, dur_ns in device_records(torch, prof):
+        if TRACE_SPIN in name:
+            spins += 1
+            continue
+        ms, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + dur_ns / 1e6, count + 1)
+    rows = [(key, ms, count) for key, (ms, count) in by_name.items()]
+    t_done = time.perf_counter()
+    print(f"{tag} trace window: the profiler dropped {TRACE_BURST - spins} "
+          f"of the {TRACE_BURST} spins that open it")
+    n_traced = check_trace(rows, counted, want_fn(eng.stats), tag)
     busy_ms = sum(ms for _, ms, _ in rows)
     if busy_ms <= 0:
         raise AssertionError("the profiler recorded no time on the card")
     rows.sort(key=lambda r: -r[1])
     print(f"{tag} profiled drain: wall {wall_ms:.1f} ms, card busy "
           f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}), decode steps "
-          f"{eng.stats['decode_steps']}, prefills {eng.stats['prefills']}")
+          f"{eng.stats['decode_steps']}, prefills {eng.stats['prefills']}; "
+          f"traced {t_parse - t_trace:.1f} s, parsed {t_done - t_parse:.1f} s")
     for key, ms, count in rows[:8]:
         print(f"{tag}   {ms:9.3f} ms  {count:6d} x  {key[:90]}")
-    traced = {name: [(ms, count) for key, ms, count in rows if sym in key]
-              for name, sym in KERNEL_SYMBOLS.items()}
-    n_traced = {name: sum(c for _, c in t) for name, t in traced.items()}
-    want = want_fn(eng.stats)
-    for name in want:
-        k_ms = sum(ms for ms, _ in traced[name])
-        print(f"{tag}   {name} ({KERNEL_SYMBOLS[name]}): {k_ms:.3f} ms in "
-              f"{n_traced[name]} launches ({k_ms / busy_ms:.1%} of the "
-              f"card's busy time)")
-    check_counts(f"{tag} profiled drain, counted", counted, want)
-    check_counts(f"{tag} profiled drain, traced", n_traced, want)
+    for name, sym in KERNEL_SYMBOLS.items():
+        if n_traced[name]:
+            k_ms = sum(ms for key, ms, _ in rows if sym in key)
+            print(f"{tag}   {name} ({sym}): {k_ms:.3f} ms in "
+                  f"{n_traced[name]} launches ({k_ms / busy_ms:.1%} of the "
+                  f"card's busy time)")
     return busy_ms, wall_ms
 
 
@@ -970,10 +1078,32 @@ def hybrid_workload(vocab):
             for n in lens]
 
 
-def serve_hybrid(torch, cfg, params, device):
-    """Phase 10: continuous serving of full-width recurrentgemma-2b. Returns
-    (engine, prompts, streams, metrics); the prefill seconds are the
-    card-synchronised time of each admission prefill, summed."""
+@contextlib.contextmanager
+def counting(module, name):
+    """Count the calls of ``module.name`` while the block runs; yields a
+    one-element list holding the count."""
+    fn = getattr(module, name)
+    calls = [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return fn(*args, **kw)
+
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def serve_continuous(torch, cfg, params, device, want_fn, what):
+    """Phases 10 and 11: continuous serving of a full-width model on
+    :func:`hybrid_workload`. Every wrapper must count ``want_fn(stats)``
+    launches, and the plain WKV recurrence (both plain WKV versions run it)
+    must not run at all. Returns (engine, prompts, streams, metrics); the
+    prefill seconds are the card-synchronised time of each admission
+    prefill, summed."""
+    from repro_torch.kernels import ref
     from repro_torch.serve import ServeEngine
 
     eng = ServeEngine(cfg, params, mode="continuous", capacity=HYB_CAPACITY,
@@ -990,16 +1120,20 @@ def serve_hybrid(torch, cfg, params, device):
 
     eng._prefill = timed_prefill
     prompts = hybrid_workload(cfg.vocab)
-    streams, m = drain(torch, eng, prompts, HYB_MAX_NEW)
+    with counting(ref, "_wkv_recurrence") as plain_wkv:
+        streams, m = drain(torch, eng, prompts, HYB_MAX_NEW)
     eng._prefill = prefill
     m["prefill_s"] = sum(prefill_s)
     m["prompt_tokens"] = sum(map(len, prompts))
+    m["plain_wkv_runs"] = plain_wkv[0]
     if any(len(s) != HYB_MAX_NEW for s in streams):
         raise AssertionError(f"stream lengths {[len(s) for s in streams]}")
     if not all(0 <= t < cfg.vocab for s in streams for t in s):
         raise AssertionError("token out of the vocabulary")
-    check_counts("continuous hybrid drain", m["counts"],
-                 hybrid_want(cfg, m))
+    check_counts(what, m["counts"], want_fn(m))
+    if plain_wkv[0]:
+        raise AssertionError(f"{what}: the plain WKV recurrence ran "
+                             f"{plain_wkv[0]} times on the card's path")
     return eng, prompts, streams, m
 
 
@@ -1054,6 +1188,247 @@ def check_replay_hybrid(torch, cfg, params, prompts, streams, device):
                              "the plain versions beyond the bf16 tolerance")
 
 
+def wkv_case(torch, gen, *, B, S, H, Dh, dtype, state):
+    """r/k/v ``[B, S, H, Dh]`` in ``dtype``, the decay w (0.98 sigmoid of a
+    normal draw, as the JAX package's kernel test draws it) in f32, u
+    ``[H, Dh]`` and an initial state (or None), on the card."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    r, k, v = (randn(B, S, H, Dh).to(dtype) for _ in range(3))
+    w = 0.98 * torch.sigmoid(randn(B, S, H, Dh))
+    return [r, k, v, w, 0.1 * randn(H, Dh),
+            randn(B, H, Dh, Dh) if state else None]
+
+
+def wkv_bound_ms(r, state: bool):
+    """Least time for one WKV call: r, k, v (their dtype), w (f32), u, the
+    initial state if given, y and the final state moved once over the HBM
+    rate, or the f32 operations the function needs over the f32 peak,
+    whichever is larger. Per step and (batch, head) those are 5 per state
+    element (k v, w S and their sum; r S, a product and a sum) and 5 per
+    channel (the bonus term is the scalar sum_i r_i u_i k_i times v, added
+    to y)."""
+    B, S, H, Dh = r.shape
+    n = B * S * H * Dh
+    esz = r.element_size()
+    nbytes = (4 * esz * n + 4 * n + 4 * H * Dh
+              + 4 * B * H * Dh * Dh * (2 if state else 1))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 5 * n * (Dh + 1) / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_wkv_kernel(torch, cfg):
+    """Phase 11a: the WKV scan kernel vs its plain version at the serving
+    path's shapes — rwkv6-1.6b's prefill (B 1, a 2 300-token prompt, H 32,
+    Dh 64) with bf16 and f32 inputs from a zero state, and its decode step
+    (B 4, S 1) from a nonzero state — and at Dh 128 with an odd S, and
+    through strided views; each timed beside the plain version. No single
+    PyTorch call computes the recurrence, so there is no library
+    yardstick. Returns the kernels-line entry of the bf16 prefill."""
+    from repro_torch.kernels import wkv6_scan, wkv6_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    H, Dh = cfg.n_heads, cfg.head_dim
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (label, B, S, H, Dh, dtype, initial state, strided views)
+    cases = [("prefill", 1, HYB_LONG_PROMPT, H, Dh, bf16, False, False),
+             ("prefill f32", 1, HYB_LONG_PROMPT, H, Dh, f32, False, False),
+             ("decode", HYB_MAX_BATCH, 1, H, Dh, bf16, True, False),
+             ("Dh 128, S 37", 2, 37, 4, 128, f32, True, False),
+             ("strided views", 2, 300, H, Dh, bf16, True, True)]
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
+    entry = None
+    for label, B, S, Hc, Dhc, dtype, state, strided in cases:
+        args = wkv_case(torch, gen, B=B, S=S, H=Hc, Dh=Dhc, dtype=dtype,
+                        state=state)
+        if strided:
+            # [B, H, S, Dh] tensors viewed as [B, S, H, Dh], and k as the
+            # second half of a wider channel axis (a fused projection)
+            args[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+            args[1] = torch.cat([args[1], args[1]], -1)[..., Dhc:]
+            args[3] = args[3].transpose(1, 2).contiguous().transpose(1, 2)
+        y, s_t = wkv6_scan(*args)
+        ry, rs = wkv6_scan_ref(*args)
+        r, k, v, w, u, s0 = args
+        mag, _ = wkv6_scan_ref(r.float().abs(), k.float().abs(),
+                               v.float().abs(), w, u.abs(),
+                               None if s0 is None else s0.abs())
+        torch.cuda.synchronize()
+        diff = (y.float() - ry.float()).abs()
+        err = float(diff.max())
+        if dtype == f32:
+            lim, tol = TOL_F32 + WKV_UNITS * mag, f"{TOL_F32}"
+        else:
+            lim = BF16_ATOL + BF16_RTOL * ry.float().abs() + WKV_UNITS * mag
+            tol = f"{BF16_ATOL} + {BF16_RTOL} |plain|"
+        excess = float((diff - lim).max())
+        print(f"[11a] wkv6_scan {label}: B={B} S={S} H={Hc} Dh={Dhc} "
+              f"{str(dtype)[6:]} from {'S0' if state else 'zeros'}: "
+              f"max_abs_err {err:.3e} (tol {tol} + {WKV_UNITS:.3g} M, "
+              f"{excess:.3e} past it; |plain| max "
+              f"{float(ry.float().abs().max()):.3f}, M max "
+              f"{float(mag.max()):.3f}); y bitwise equal "
+              f"{torch.equal(y, ry)}, final state bitwise equal "
+              f"{torch.equal(s_t, rs)}")
+        if not (torch.isfinite(y).all() and excess <= 0
+                and torch.equal(s_t, rs)):
+            raise AssertionError(f"wkv6_scan {label}: kernel and plain "
+                                 f"version disagree")
+        ms = cuda_ms(torch, lambda: wkv6_scan(*args), flush=flush)
+        # the plain version is a host loop of ~8 launches a step: at a
+        # prompt's length a few calls time it well enough
+        plain_ms = cuda_ms(torch, lambda: wkv6_scan_ref(*args),
+                           n=3 if S > 100 else 50,
+                           warmup=1 if S > 100 else 5, flush=flush)
+        bound, bound_by = wkv_bound_ms(r, state)
+        print(f"[11a] wkv6_scan {label}: {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {bound:.5f} ms ({bound_by}), library none, "
+              f"L2 cold")
+        if entry is None:
+            entry = {"name": "wkv6_scan", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/wkv6_scan.cu",
+                     "replaces": "src/repro/kernels/wkv6_scan.py:55",
+                     "launches": None, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": bound_by, "library_ms": None}
+    del flush
+    return entry
+
+
+def ssm_want(cfg, st) -> dict:
+    """Launches a continuous rwkv6 drain must count: the WKV kernel once
+    per layer per prefill and per decode step."""
+    return {"wkv6_scan": cfg.n_layers * (st["prefills"] + st["decode_steps"])}
+
+
+class WkvReplay:
+    """The replay's WKV dispatch: each call runs the kernel, whose output
+    the model goes on with, and its f32 output on the same values is kept.
+    :meth:`check` then holds the kept calls (every layer of one prefill, or
+    of one decode step) against the plain version, and the plain version
+    against the recurrence in f64, under the error model above
+    (``WKV_UNITS``): one batched pass over the layers, since no call's
+    inputs depend on another call's comparison."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.pending = []
+        self.calls = 0
+        self.max_err = 0.0        # max |kernel - plain|, f32 y
+        self.max_err_units = 0.0  # the same, in units of 2**-24 M
+        self.max_noise_units = 0.0  # max |plain - f64|, 2**-24 M units
+
+    def __call__(self, r, k, v, w, u, s0):
+        from repro_torch.kernels import wkv6_scan
+
+        torch = self.torch
+        y, s_t = wkv6_scan(r, k, v, w, u, s0)
+        # s0 is a view of the slot cache, which decode overwrites with s_t
+        wide = [t.float() for t in (r, k, v)] + [
+            w, u, None if s0 is None else s0.clone()]
+        ky, ks = wkv6_scan(*wide)
+        if not (torch.equal(ky.to(y.dtype), y) and torch.equal(ks, s_t)):
+            raise AssertionError("wkv6_scan: the kernel's f32 output differs "
+                                 "from its output in the model's dtype")
+        self.pending.append((wide, ky, ks))
+        return y, s_t
+
+    def check(self):
+        """Hold the kept calls to the plain version and to f64."""
+        from repro_torch.kernels import ref, wkv6_scan_ref
+
+        torch = self.torch
+        calls, self.pending = self.pending, []
+        self.calls += len(calls)
+        B, _, H, Dh = calls[0][0][0].shape
+        n_calls = len(calls)
+
+        def stack(i):          # the calls' i-th input, batched: [n B, ...]
+            if calls[0][0][i] is None:
+                return None
+            return torch.cat([c[0][i] for c in calls])
+
+        r, k, v, w, s0 = (stack(i) for i in (0, 1, 2, 3, 5))
+        u = torch.stack([c[0][4] for c in calls])       # each call's u
+        u = u.repeat_interleave(B, dim=0)               # [n B, H, Dh]
+        ky = torch.cat([c[1] for c in calls]).double()
+        ks = torch.cat([c[2] for c in calls])
+        py, ps = wkv6_scan_ref(r, k, v, w, u, s0)
+        if not torch.equal(ks, ps):
+            raise AssertionError("wkv6_scan: the kernel's final state differs "
+                                 "from the plain version's")
+        # the recurrence in f64 on the inputs and, batched beside them, on
+        # their magnitudes: the reference y and the terms' magnitude M
+        nb = n_calls * B
+        state = (torch.zeros((nb, H, Dh, Dh), dtype=torch.float64,
+                             device=r.device) if s0 is None else s0.double())
+        both = [torch.cat([t.double(), t.double().abs()]).transpose(1, 2)
+                for t in (r, k, v, w)]
+        ud = u.double()
+        y64, _ = ref._wkv_recurrence(*both, torch.cat([ud, ud.abs()]),
+                                     torch.cat([state, state.abs()]))
+        y64 = y64.transpose(1, 2)
+        exact, mag = y64[:nb], y64[nb:]
+        unit = 2.0 ** -24 * mag.clamp_min(1e-30)
+        err = (ky - py.double()).abs()
+        noise = (py.double() - exact).abs()
+        self.max_err = max(self.max_err, float(err.max()))
+        self.max_err_units = max(self.max_err_units, float((err / unit).max()))
+        self.max_noise_units = max(self.max_noise_units,
+                                   float((noise / unit).max()))
+
+
+def check_replay_ssm(torch, cfg, params, prompts, streams, device):
+    """Phase 11: the served streams replayed teacher-forced — each prompt's
+    prefill into a slot cache, then the served tokens fed back through the
+    slot decode — with every WKV call held, layer by layer, to the plain
+    version under the stated error model; the logits must be finite, and
+    the served tokens' agreement with the replay's argmax is reported."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serve.batch import init_slot_cache, write_slot
+
+    wkv = WkvReplay(torch)
+    cache = init_slot_cache(cfg, len(prompts), HYB_CAPACITY, device=device)
+    first = []
+    for i, p in enumerate(prompts):
+        lg, c = prefill(cfg, params, torch.as_tensor(p[None], device=device),
+                        HYB_CAPACITY, wkv=wkv)
+        wkv.check()
+        write_slot(cache, c, i)
+        first.append(lg[0, -1].float())
+    steps = [torch.stack(first)]
+    for t in range(HYB_MAX_NEW - 1):
+        tok = torch.as_tensor([[s[t]] for s in streams], dtype=torch.int32,
+                              device=device)
+        lg, cache = decode_step(cfg, params, tok, cache, wkv=wkv)
+        wkv.check()
+        steps.append(lg[:, -1].float())
+    logits = torch.stack(steps, dim=1)
+    served = torch.as_tensor(streams, device=device).long()
+    gap = float((logits.max(-1).values
+                 - logits.gather(-1, served[..., None])[..., 0]).max())
+    agree = float((logits.argmax(-1) == served).float().mean())
+    want = cfg.n_layers * (len(prompts) + HYB_MAX_NEW - 1)
+    limit = WKV_UNITS * 2 ** 24
+    print(f"[11] replay over {len(prompts)} x {HYB_MAX_NEW} steps, "
+          f"{wkv.calls} WKV calls: max |y kernel - plain| {wkv.max_err:.3e} "
+          f"(f32), {wkv.max_err_units:.2f} units of 2^-24 M (limit "
+          f"{limit:g}); rounding noise max |y plain - f64| "
+          f"{wkv.max_noise_units:.2f} units (limit {limit / 2:g}, 2x "
+          f"headroom); served token within {gap:.4f} of the replay's "
+          f"argmax logit, argmax agreement {agree:.4f}; |logit| max "
+          f"{float(logits.abs().max()):.3f}")
+    if wkv.calls != want or not torch.isfinite(logits).all():
+        raise AssertionError(f"ssm replay: {wkv.calls} WKV calls (want "
+                             f"{want}) or non-finite logits")
+    if wkv.max_err_units > limit or wkv.max_noise_units > limit / 2:
+        raise AssertionError("ssm replay: the kernel's WKV output departs "
+                             "from the plain version's beyond the error "
+                             "model, or the rounding noise leaves the limit "
+                             "less than 2x headroom")
+
+
 def main() -> int:
     import torch
 
@@ -1082,9 +1457,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    logs = build.build(KERNEL_SOURCES)
+    # the profiler's first start in a process takes seconds: pay it while
+    # nvcc builds the kernels
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(build.build, KERNEL_SOURCES)
+        t_warm = time.perf_counter()
+        warm_up_profiler(torch)
+        t_warm = time.perf_counter() - t_warm
+        logs = building.result()
     print(f"[2] built {', '.join(KERNEL_SOURCES)} in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s (the profiler's first start, "
+          f"{t_warm:.1f} s, beside it)")
     for line in ptxas_report(logs):
         print(f"[2] {line}")
     lap("[2]")
@@ -1144,8 +1527,9 @@ def main() -> int:
     lap("[9]")
     hparams = init_params(hcfg, torch.Generator(
         device="cuda").manual_seed(SEED), device=device)
-    h_eng, h_prompts, h_streams, hm = serve_hybrid(torch, hcfg, hparams,
-                                                   device)
+    h_eng, h_prompts, h_streams, hm = serve_continuous(
+        torch, hcfg, hparams, device, lambda st: hybrid_want(hcfg, st),
+        "continuous hybrid drain")
     kernels[2]["launches"] = hm["counts"]["flash_attention"]
     kernels[3]["launches"] = hm["counts"]["rglru_scan"]
     print("[10] " + json.dumps({k: hm[k] for k in (
@@ -1159,6 +1543,30 @@ def main() -> int:
     profile_drain(torch, h_eng, hcfg.vocab,
                   lambda st: hybrid_want(hcfg, st), tag="[10]")
     lap("[10] profile")
+    del h_eng, hparams
+    torch.cuda.empty_cache()
+
+    scfg = get(SSM_ARCH).config
+    kernels.append(check_wkv_kernel(torch, scfg))
+    lap("[11a]")
+    sparams = init_params(scfg, torch.Generator(
+        device="cuda").manual_seed(SEED), device=device)
+    s_eng, s_prompts, s_streams, sm = serve_continuous(
+        torch, scfg, sparams, device, lambda st: ssm_want(scfg, st),
+        "continuous rwkv6 drain")
+    kernels[4]["launches"] = sm["counts"]["wkv6_scan"]
+    print("[11] " + json.dumps({k: sm[k] for k in (
+        "wall_s", "tokens", "tokens_per_s", "ttft_p50_ms", "ttft_max_ms",
+        "prefill_s", "prompt_tokens", "prefills", "decode_steps",
+        "decode_dispatches", "peak_concurrency", "plain_wkv_runs",
+        "counts")}))
+    lap("[11] serve")
+    check_replay_ssm(torch, scfg, s_eng.params, s_prompts, s_streams,
+                     device)
+    lap("[11] replay")
+    profile_drain(torch, s_eng, scfg.vocab, lambda st: ssm_want(scfg, st),
+                  tag="[11]")
+    lap("[11] profile")
     print(f"[ ] total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -17,10 +17,11 @@ class ArchSpec:
         return self.config.name
 
     def reduced(self) -> ModelConfig:
-        """Smoke-test variant: 2 layers (the hybrid family: one block of its
-        pattern), d_model ≤ 256, f32 — same wiring. The JAX package's
-        ``ArchSpec.reduced`` cut for the families the port runs, so tests
-        compare like with like."""
+        """Smoke-test variant: 2 layers (the hybrid family: one block of
+        its pattern), d_model ≤ 256, ≤ 4 heads, d_ff ≤ 512, vocab ≤ 512,
+        f32 — same wiring. The JAX package's ``ArchSpec.reduced`` cut for the
+        families the port runs (dense, hybrid, ssm), so tests compare like
+        with like."""
         cfg = self.config
         d_model = min(cfg.d_model, 256)
         n_heads = max(min(cfg.n_heads, 4), 1)

@@ -17,8 +17,10 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_attention_multi import paged_attention_multi
 from repro_torch.kernels.ref import (attention_ref, paged_attention_multi_ref,
-                                     paged_attention_ref, rglru_ref)
+                                     paged_attention_ref, rglru_ref,
+                                     wkv6_ref, wkv6_scan_ref)
 from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.wkv6_scan import wkv6_scan
 
 # kernel wrapper -> (plain version in kernels/ref.py, parity test module)
 KERNEL_ORACLES: dict[str, tuple[str, str]] = {
@@ -27,6 +29,7 @@ KERNEL_ORACLES: dict[str, tuple[str, str]] = {
                               "tests/test_torch_kernels.py"),
     "flash_attention": ("attention_ref", "tests/test_torch_flash_rglru.py"),
     "rglru_scan": ("rglru_ref", "tests/test_torch_flash_rglru.py"),
+    "wkv6_scan": ("wkv6_scan_ref", "tests/test_torch_wkv6.py"),
 }
 
 _PKG = Path(__file__).resolve().parent
@@ -69,4 +72,4 @@ def check_kernel_oracles(registry: dict[str, tuple[str, str]] | None = None,
 __all__ = ["KERNEL_ORACLES", "attention_ref", "check_kernel_oracles",
            "flash_attention", "paged_attention", "paged_attention_multi",
            "paged_attention_multi_ref", "paged_attention_ref", "rglru_ref",
-           "rglru_scan"]
+           "rglru_scan", "wkv6_ref", "wkv6_scan", "wkv6_scan_ref"]

@@ -90,3 +90,47 @@ def rglru_ref(a, x):
         h = a[:, t] * h + x[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1)
+
+
+def _wkv_recurrence(r, k, v, w, u, state):
+    """The WKV recurrence, step by step, in f32: r/k/v/w ``[..., S, Dh]``,
+    u ``[..., Dh]`` (broadcast over the leading axes), state ``[..., Dh,
+    Dh]`` -> (y ``[..., S, Dh]``, final state). Each step
+
+        y_t = r_t · (S_t + (u ⊙ k_t) v_tᵀ)
+        S_{t+1} = diag(w_t) S_t + k_t v_tᵀ
+
+    with the JAX package's roundings: ``k v`` once, ``u (k v)`` once, each
+    sum once, ``w S`` once."""
+    ys = []
+    u = u[..., :, None]
+    for r_t, k_t, v_t, w_t in zip(*(x.unbind(-2) for x in (r, k, v, w))):
+        kv = k_t[..., :, None] * v_t[..., None, :]
+        ys.append((r_t[..., None, :] @ (state + u * kv))[..., 0, :])
+        state = w_t[..., :, None] * state + kv
+    return torch.stack(ys, dim=-2), state
+
+
+def wkv6_ref(r, k, v, w, u):
+    """RWKV-6 WKV oracle, the JAX package's ``wkv6_ref`` transcribed: r/k/v/w
+    ``[BH, S, Dh]``, u ``[BH, Dh]`` -> y ``[BH, S, Dh]`` in r's dtype, from a
+    zero state, computed in f32."""
+    BH, _, Dh = r.shape
+    y, _ = _wkv_recurrence(*(t.float() for t in (r, k, v, w, u)),
+                           torch.zeros((BH, Dh, Dh), dtype=torch.float32,
+                                       device=r.device))
+    return y.to(r.dtype)
+
+
+def wkv6_scan_ref(r, k, v, w, u, s0=None):
+    """The model's WKV scan, the JAX model's ``_wkv_scan`` transcribed, and
+    the plain version of :func:`repro_torch.kernels.wkv6_scan`: r/k/v/w
+    ``[B, S, H, Dh]`` (any dtype, widened to f32), u ``[H, Dh]``, s0 ``[B,
+    H, Dh, Dh]`` f32 or None (zeros) -> (y ``[B, S, H, Dh]`` in r's dtype,
+    the final state ``[B, H, Dh, Dh]`` f32)."""
+    B, _, H, Dh = r.shape
+    state = (torch.zeros((B, H, Dh, Dh), dtype=torch.float32,
+                         device=r.device) if s0 is None else s0.float())
+    y, s_t = _wkv_recurrence(*(t.float().transpose(1, 2)
+                               for t in (r, k, v, w)), u.float(), state)
+    return y.transpose(1, 2).to(r.dtype), s_t

@@ -1,12 +1,16 @@
-"""CLI serving driver for the port: paged KV over the CUDA paged-attention
-kernel, or continuous batching over slot caches; every prefill runs the
-CUDA flash-attention kernel (and, for the hybrid family, the RG-LRU scan).
+"""CLI serving driver for the port: continuous batching over slot caches
+(the default, as in the JAX package's CLI), or paged KV over the CUDA
+paged-attention kernel. Every attention prefill runs the CUDA
+flash-attention kernel, the hybrid family's recurrent prefill the RG-LRU
+scan, and every rwkv6 prefill and decode step the WKV scan.
 
-  python -m repro_torch.launch.serve --arch smollm-360m --requests 8
+  python -m repro_torch.launch.serve --arch smollm-360m --mode paged \\
+      --requests 8
   python -m repro_torch.launch.serve --arch smollm-360m --reduced \\
-      --device cpu --block-size 8 --num-blocks 16
-  python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
-      --mode continuous
+      --device cpu --mode paged --block-size 8 --num-blocks 16
+  python -m repro_torch.launch.serve --arch recurrentgemma-2b
+  python -m repro_torch.launch.serve --arch rwkv6-1.6b --reduced \\
+      --device cpu
 
 Weights are random, drawn from ``--seed``.
 """
@@ -32,10 +36,10 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--capacity", type=int, default=64)
     ap.add_argument("--max-batch", type=int, default=4)
-    ap.add_argument("--mode", choices=("paged", "continuous"),
-                    default="paged",
-                    help="paged KV (dense family) or continuous batching "
-                         "over slot caches (dense and hybrid)")
+    ap.add_argument("--mode", choices=("continuous", "paged"),
+                    default="continuous",
+                    help="continuous batching over slot caches (every "
+                         "family the port runs) or paged KV (dense)")
     ap.add_argument("--decode-chunk", type=int, default=8,
                     help="decode tokens per chunk")
     ap.add_argument("--block-size", type=int, default=16,

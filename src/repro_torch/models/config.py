@@ -2,11 +2,12 @@
 
 The field names are the JAX package's, so a test can build both configs
 from the same overrides; ``dtype`` and ``param_dtype`` are ``torch.dtype``s.
-The port runs the ``dense`` and ``hybrid`` (RecurrentGemma) families so far;
-the fields other families need come back with the slice that first runs
-them (``ROADMAP.md``). ``window``, ``norm``, ``qkv_bias`` and
-``logits_softcap`` are kept so that ``models.transformer.require_ported``
-can reject a config that needs more than the port has."""
+The port runs the ``dense``, ``hybrid`` (RecurrentGemma) and ``ssm``
+(RWKV-6) families so far; the fields other families need come back with
+the slice that first runs them (``ROADMAP.md``). ``window``, ``norm``,
+``qkv_bias`` and ``logits_softcap`` are kept so that
+``models.transformer.require_ported`` can reject a config that needs more
+than the port has."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +18,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # "dense" or "hybrid" in the port
+    family: str                    # "dense", "hybrid" or "ssm" in the port
     n_layers: int
     d_model: int
     n_heads: int

@@ -1,11 +1,11 @@
-"""The decoder: parameter init, prefill and the decode cache, for the dense
-and hybrid (RecurrentGemma) families.
+"""The decoder: parameter init, prefill and the decode cache, for the dense,
+hybrid (RecurrentGemma) and ssm (RWKV-6) families.
 
 * ``init_params(cfg, generator, device=)`` — dict tree with layer-stacked
   weights (the JAX package's tree, leaf for leaf): ``layers`` ``[L, ...]``
-  for dense; ``blocks`` (one entry per position of the block pattern,
-  stacked over ``n_layers // len(pattern)`` blocks) and the list ``rem`` of
-  trailing layers for hybrid;
+  for dense and ssm; ``blocks`` (one entry per position of the block
+  pattern, stacked over ``n_layers // len(pattern)`` blocks) and the list
+  ``rem`` of trailing layers for hybrid;
 * ``prefill(cfg, params, tokens, capacity)`` — full-prompt forward that also
   materializes the decode cache;
 * ``init_cache(cfg, batch, capacity, device=)`` — an empty cache;
@@ -13,10 +13,11 @@ and hybrid (RecurrentGemma) families.
   that cache.
 
 The JAX package scans over the stacked layers; here a Python loop walks them
-(:func:`layer_params` gives layer ``i``'s views). Prefill attention and the
-prefill RG-LRU recurrence go through :mod:`repro_torch.kernels.ops`: the
-CUDA kernels on the card, their plain versions on the CPU. Other families
-raise ``NotImplementedError`` (``ROADMAP.md``).
+(:func:`layer_params` gives layer ``i``'s views). Prefill attention, the
+prefill RG-LRU recurrence and every WKV recurrence (prefill and decode) go
+through :mod:`repro_torch.kernels.ops`: the CUDA kernels on the card, their
+plain versions on the CPU. Other families raise ``NotImplementedError``
+(``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models import rglru
+from repro_torch.models import rglru, rwkv6
 from repro_torch.models.attention import (decode_self_attention, init_attn,
                                          init_kv_cache, prefill_attention,
                                          qkv)
@@ -36,14 +37,16 @@ from repro_torch.models.layers import (apply_norm, dense, embed, init_embed,
                                        unembed)
 
 Params = Any
-FAMILIES = ("dense", "hybrid")
+# parameter leaves the JAX package reads in f32 whatever cfg.dtype is
+F32_LEAVES = ("lam", "w0")
+FAMILIES = ("dense", "hybrid", "ssm")
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Reject configs the port cannot run yet: it has the dense and hybrid
-    families with RMSNorm, SwiGLU or GELU, full attention (the hybrid
+    """Reject configs the port cannot run yet: it has the dense, hybrid and
+    ssm families with RMSNorm, SwiGLU or GELU, full attention (the hybrid
     family's local window is its own), no QKV bias and no logit
-    soft-capping (``smollm-360m``, ``recurrentgemma-2b``)."""
+    soft-capping (``smollm-360m``, ``recurrentgemma-2b``, ``rwkv6-1.6b``)."""
     if (cfg.family not in FAMILIES or cfg.window is not None
             or cfg.norm != "rmsnorm" or cfg.act not in ("swiglu", "gelu")
             or cfg.qkv_bias or cfg.logits_softcap
@@ -52,9 +55,9 @@ def require_ported(cfg: ModelConfig) -> None:
             f"{cfg.name}: family={cfg.family!r} window={cfg.window!r} "
             f"norm={cfg.norm!r} act={cfg.act!r} qkv_bias={cfg.qkv_bias} "
             f"logits_softcap={cfg.logits_softcap} "
-            f"block_pattern={cfg.block_pattern}: the port runs the dense and "
-            "hybrid RMSNorm families only (ROADMAP.md, queue 1, remaining "
-            "model families)")
+            f"block_pattern={cfg.block_pattern}: the port runs the dense, "
+            "hybrid and ssm RMSNorm families only (ROADMAP.md, queue 1, "
+            "remaining model families)")
 
 
 def layer_params(layers: Params, i: int) -> Params:
@@ -74,6 +77,10 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, kind: str) -> Params:
     gd = gen.device
     p = {"norm1": make_norm_params(cfg, cfg.d_model, gd),
          "norm2": make_norm_params(cfg, cfg.d_model, gd)}
+    if kind == "rwkv":
+        p["tm"] = rwkv6.init_time_mix(cfg, gen)
+        p["cm"] = rwkv6.init_channel_mix(cfg, gen)
+        return p
     if kind == "rec":
         p["rec"] = rglru.init_recurrent_block(cfg, gen)
     else:
@@ -109,7 +116,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
         params["rem"] = [_init_layer(cfg, generator, pat[i % len(pat)])
                          for i in range(rem)]
     else:
-        params["layers"] = _stack([_init_layer(cfg, generator, "attn")
+        kind = "rwkv" if cfg.family == "ssm" else "attn"
+        params["layers"] = _stack([_init_layer(cfg, generator, kind)
                                    for _ in range(cfg.n_layers)])
     return tree_to(params, device=dev)
 
@@ -126,15 +134,16 @@ def tree_to(tree: Params, **kw) -> Params:
 def compute_params(cfg: ModelConfig, params: Params, device) -> Params:
     """``params`` on ``device`` as the model computes with them: every leaf
     cast once to ``cfg.dtype``, which the JAX package casts each weight to at
-    every use, except the RG-LRU's ``lam``, which it reads in f32 (the
-    same arithmetic, once instead of per call)."""
+    every use, except the RG-LRU's ``lam`` and the RWKV decay's ``w0``,
+    which it reads in f32 (the same arithmetic, once instead of per
+    call)."""
     def walk(tree, name=""):
         if isinstance(tree, dict):
             return {k: walk(v, k) for k, v in tree.items()}
         if isinstance(tree, list):
             return [walk(v) for v in tree]
-        return tree.to(device=device,
-                       dtype=torch.float32 if name == "lam" else cfg.dtype)
+        return tree.to(device=device, dtype=torch.float32
+                       if name in F32_LEAVES else cfg.dtype)
 
     return walk(params)
 
@@ -196,45 +205,77 @@ def _kv_to_cache(k, v, capacity, window=None):
 def _rec_layer_state(cfg, p, x, *, scan):
     """One recurrent layer over the whole prompt; also returns its decode
     state: the final RG-LRU state and the last ``conv1d_width - 1``
-    pre-convolution inputs."""
+    pre-convolution inputs. A prompt shorter than that is left-padded with
+    zeros, the inputs ``causal_conv1d`` pads it with; the JAX package keeps
+    only the prompt's rows there (``repro/models/transformer.py:384``), so
+    its decode breaks on such a prompt, and the port departs from it."""
     hn = apply_norm(cfg, p["norm1"], x)
     u = hn @ p["rec"]["w_in_x"].to(cfg.dtype)
     y, h_last = rglru.recurrent_block(cfg, p["rec"], hn, scan=scan)
     h = x + y
     h = h + mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], h))
-    return h, {"h": h_last, "conv": u[:, -(cfg.conv1d_width - 1):]}
+    keep = cfg.conv1d_width - 1
+    conv = torch.nn.functional.pad(u[:, -keep:],
+                                   (0, 0, max(keep - u.shape[1], 0), 0))
+    return h, {"h": h_last, "conv": conv}
+
+
+def _rwkv_layer(cfg, p, x, state=None, *, wkv):
+    """One RWKV-6 layer: time-mix then channel-mix, each on the normed
+    residual stream. ``state`` is the layer's ``{tm_shift, cm_shift, S}``
+    (None for a prompt). Returns (x, the layer's new state)."""
+    y, tm = rwkv6.time_mix(
+        cfg, p["tm"], apply_norm(cfg, p["norm1"], x),
+        None if state is None else {"shift": state["tm_shift"],
+                                    "S": state["S"]}, wkv=wkv)
+    x = x + y
+    y, cm_shift = rwkv6.channel_mix(
+        cfg, p["cm"], apply_norm(cfg, p["norm2"], x),
+        None if state is None else state["cm_shift"])
+    return x + y, {"tm_shift": tm["shift"], "cm_shift": cm_shift,
+                   "S": tm["S"]}
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens, capacity: int, *,
             length: int | None = None, attend=ops.attention,
-            scan=ops.rglru):
+            scan=ops.rglru, wkv=ops.wkv6):
     """tokens [B, S] -> (last-token logits [B, 1, V], decode cache).
 
     The cache is laid out as :func:`init_cache` lays it out: dense
     ``{"kv": {"k", "v"}: [L, B, capacity, Hkv, Dh], "idx"}``; hybrid
     ``{"blocks", "rem", "idx"}``, whose attention layers keep a ring of
     ``min(capacity, local_window)`` positions and whose recurrent layers
-    keep ``{"h", "conv"}``.
+    keep ``{"h", "conv"}``; ssm ``{"state": {"tm_shift", "cm_shift", "S"},
+    "idx"}`` with a leading layer axis (``capacity`` unused).
 
     ``length`` (≤ S, dense only) marks the prompt as right-padded: logits are
     taken at position ``length - 1`` and the cache resumes from position
     ``length``. Pad positions are causally masked, so the valid outputs are
     unchanged; a recurrent state would fold the pad tokens in, so the hybrid
-    family refuses it, as the JAX package's docstring does.
+    and ssm families refuse it, as the JAX package's docstring does.
 
-    ``attend`` and ``scan`` run the prefill attention (``[B, H, S, Dh]``
-    layout) and the RG-LRU recurrence: the kernels' dispatch in
-    :mod:`repro_torch.kernels.ops` unless the caller passes the plain
-    versions.
+    ``attend``, ``scan`` and ``wkv`` run the prefill attention (``[B, H, S,
+    Dh]`` layout), the RG-LRU recurrence and the WKV recurrence: the
+    kernels' dispatch in :mod:`repro_torch.kernels.ops` unless the caller
+    passes the plain versions.
     """
     require_ported(cfg)
     B, S = tokens.shape
     x = embed(cfg, params["embed"], tokens)
     positions = torch.arange(S, device=tokens.device)
-    if cfg.family == "hybrid":
-        if length is not None:
-            raise ValueError("prefill(length=) pads the prompt, which the "
-                             "hybrid family's recurrent state would absorb")
+    if cfg.family in ("hybrid", "ssm") and length is not None:
+        raise ValueError(f"prefill(length=) pads the prompt, which the "
+                         f"{cfg.family} family's recurrent state would "
+                         "absorb")
+    if cfg.family == "ssm":
+        states = []
+        for i in range(cfg.n_layers):
+            x, st = _rwkv_layer(cfg, layer_params(params["layers"], i), x,
+                                wkv=wkv)
+            states.append(st)
+        cache = {"state": _stack(states), "idx": S}
+        idx = S
+    elif cfg.family == "hybrid":
         win = min(capacity, cfg.local_window)
         pat, nb, _ = _hybrid_shape(cfg)
         blocks = {f"l{i}_{kind}": [] for i, kind in enumerate(pat)}
@@ -277,9 +318,16 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, *,
     ``{"blocks", "rem", "idx": 0}`` with each block leaf stacked ``[n_blocks,
     batch, ...]``: attention rings k/v ``[batch, min(capacity,
     local_window), Hkv, Dh]``, recurrent state h ``[batch, R]`` and conv
-    ``[batch, conv1d_width - 1, R]``."""
+    ``[batch, conv1d_width - 1, R]``; ssm ``{"state", "idx": 0}`` with
+    ``tm_shift``/``cm_shift`` ``[L, batch, D]`` and S ``[L, batch, H, Dh,
+    Dh]`` in f32 (``capacity`` unused)."""
     require_ported(cfg)
     dev = resolve_device(device)
+    if cfg.family == "ssm":
+        st = rwkv6.init_rwkv_state(cfg, cfg.n_layers * batch, device=dev)
+        return {"state": {k: t.reshape(cfg.n_layers, batch, *t.shape[1:])
+                          for k, t in st.items()},
+                "idx": 0}
     if cfg.family == "hybrid":
         pat, nb, rem = _hybrid_shape(cfg)
         win = min(capacity, cfg.local_window)
@@ -308,7 +356,8 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, *,
 # Decode: one token per slot against the dense cache
 # ---------------------------------------------------------------------------
 
-def decode_step(cfg: ModelConfig, params: Params, tokens, cache):
+def decode_step(cfg: ModelConfig, params: Params, tokens, cache, *,
+                wkv=ops.wkv6):
     """tokens [B, 1] -> (logits [B, 1, V], cache).
 
     ``cache["idx"]`` is the absolute position of this token: one for the
@@ -316,14 +365,23 @@ def decode_step(cfg: ModelConfig, params: Params, tokens, cache):
     :func:`repro_torch.serve.batch.init_slot_cache`). Every cache leaf is
     written in place; the returned cache holds them and ``idx + 1``. The
     hybrid family's attention layers write their rings at ``idx %
-    capacity``.
+    capacity``; the ssm family's WKV step runs through ``wkv`` (the
+    kernels' dispatch unless the caller passes the plain version).
     """
     require_ported(cfg)
     B = tokens.shape[0]
     x = embed(cfg, params["embed"], tokens)
     idx = torch.as_tensor(cache["idx"], dtype=torch.int32,
                           device=tokens.device).reshape(-1).expand(B)
-    if cfg.family == "hybrid":
+    if cfg.family == "ssm":
+        state = cache["state"]
+        for i in range(cfg.n_layers):
+            x, new = _rwkv_layer(cfg, layer_params(params["layers"], i), x,
+                                 layer_params(state, i), wkv=wkv)
+            for name, t in new.items():
+                state[name][i].copy_(t)
+        new_cache = {"state": state}
+    elif cfg.family == "hybrid":
         for kind, lp, st in hybrid_layers(cfg, params, cache):
             hn = apply_norm(cfg, lp["norm1"], x)
             if kind == "rec":

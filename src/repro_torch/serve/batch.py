@@ -15,7 +15,8 @@ one. The continuous mode and the speculative draft keep a dense *slot
 layout* instead (:func:`init_slot_cache`, :func:`write_slot`,
 :func:`gather_slot`): every slot reserves a whole cache of the model's own
 tree (dense k/v ``[L, max_batch, capacity, Hkv, Dh]``; the hybrid family's
-``blocks``/``rem`` of rings and recurrent state) with a per-slot ``idx``
+``blocks``/``rem`` of rings and recurrent state; the ssm family's
+``state`` of token shifts and WKV state matrices) with a per-slot ``idx``
 vector. The block *allocator* (:class:`BlockAllocator`) and the
 shared-prefix index (:class:`PrefixIndex`) are host-side numpy, copied from
 ``repro.serve.batch``: refcounted blocks let requests that share a prompt
@@ -109,8 +110,9 @@ def copy_block(pool_data, src: int, dst: int):
 # slot axis of each per-slot subtree of a slot-layout cache, written out
 # where the JAX package finds it by abstract evaluation
 # (``repro.models.cache_batch_axes``): the layer- or block-stacked leaves
-# carry the slot on axis 1, the hybrid family's ``rem`` leaves on axis 0
-SLOT_AXES = {"kv": 1, "blocks": 1, "rem": 0}
+# (dense ``kv``, hybrid ``blocks``, ssm ``state``) carry the slot on axis 1,
+# the hybrid family's ``rem`` leaves on axis 0
+SLOT_AXES = {"kv": 1, "blocks": 1, "rem": 0, "state": 1}
 
 
 def _map_slots(fn, slot_cache, *others):
@@ -133,7 +135,8 @@ def init_slot_cache(cfg: ModelConfig, max_batch: int, capacity: int, *,
                     device):
     """Empty slot-layout cache: :func:`repro_torch.models.init_cache` for
     ``max_batch`` streams (dense: k/v ``[L, max_batch, capacity, Hkv, Dh]``;
-    hybrid: the ``blocks``/``rem`` tree), with ``idx`` a per-slot
+    hybrid: the ``blocks``/``rem`` tree; ssm: the ``state`` tree), with
+    ``idx`` a per-slot
     ``[max_batch]`` int32 vector."""
     cache = init_cache(cfg, max_batch, capacity, device=device)
     cache["idx"] = torch.zeros((max_batch,), dtype=torch.int32,

@@ -3,7 +3,7 @@ slot-based continuous batching.
 
 The counterpart of ``repro.serve.engine.ServeEngine`` in two of its modes.
 
-``mode="paged"`` (the port's default) with ``kv_impl="kernel"``: a
+``mode="paged"`` with ``kv_impl="kernel"``: a
 :class:`~repro_torch.serve.batch.BlockPool`
 owns the physical ``[num_blocks + 1, block_size, L, Hkv, Dh]`` KV pools;
 each request holds only the blocks its tokens occupy, mapped through a
@@ -28,7 +28,8 @@ through the block table with the CUDA kernel
 :func:`repro_torch.kernels.paged_attention_multi`, and after each chunk the
 blocks past every slot's accepted length are trimmed back to the pool.
 
-``mode="continuous"``: a :class:`~repro_torch.serve.scheduler.SlotScheduler`
+``mode="continuous"`` (the default, as in the JAX package): a
+:class:`~repro_torch.serve.scheduler.SlotScheduler`
 owns ``max_batch`` decode slots, each reserving a whole cache of the
 model's own layout (:func:`~repro_torch.serve.batch.init_slot_cache`); each
 queued request is prefilled on its own (exact prompt length, batch 1) and
@@ -36,9 +37,11 @@ its cache written into a free slot mid-decode. Decode runs
 ``decode_chunk`` tokens per dispatch
 (:func:`~repro_torch.serve.steps.make_fused_decode`) with EOS and budget
 masking on the device, and one host read per chunk. This is the mode that
-serves the hybrid family (``recurrentgemma-2b``): its prefill runs the CUDA
-flash-attention and RG-LRU kernels (:mod:`repro_torch.kernels.ops`), as
-every prefill of the port does.
+serves the hybrid family (``recurrentgemma-2b``), whose prefill runs the
+CUDA flash-attention and RG-LRU kernels, and the ssm family
+(``rwkv6-1.6b``), whose prefill and decode steps run the CUDA WKV kernel
+(:mod:`repro_torch.kernels.ops`); paged mode refuses both, as the JAX
+package's does.
 
 ``run()`` drains the queue to ``{rid: tokens}``; ``stream()`` yields
 ``(rid, delta_tokens, done)`` at admission and at every chunk boundary.
@@ -93,7 +96,7 @@ def _check_draft(cfg: ModelConfig, dcfg: ModelConfig) -> None:
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, capacity: int = 256,
                  max_batch: int = 8, eos_id: int | None = None,
-                 mode: str = "paged", decode_chunk: int = 8,
+                 mode: str = "continuous", decode_chunk: int = 8,
                  block_size: int = 16, num_blocks: int | None = None,
                  kv_impl: str = "auto", share_prefix: bool = True,
                  speculate: SpecConfig | None = None, recorder=None,

@@ -2,9 +2,10 @@
 
 ``params_from_jax`` turns the JAX parameter pytree — converted to numpy by
 the caller, e.g. ``jax.tree.map(np.asarray, params)`` — into the port's
-tree: ``embed.table``, ``final_norm`` and, for the dense family, the
-layer-stacked ``layers`` with leading axis L, or, for the hybrid family, the
-block-stacked ``blocks`` and the list of trailing layers ``rem``.
+tree: ``embed.table``, ``final_norm`` and, for the dense and ssm families,
+the layer-stacked ``layers`` with leading axis L (attention and MLP, or
+RWKV-6 time- and channel-mix), or, for the hybrid family, the block-stacked
+``blocks`` and the list of trailing layers ``rem``.
 ``truncate_params`` cuts a dense tree to its first layers (a speculative
 draft). The trees match leaf for leaf, so both packages compute
 with identical weights. The port never imports JAX; only the numpy tree
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-DENSE_KEYS = {"embed", "final_norm", "layers"}
+DENSE_KEYS = {"embed", "final_norm", "layers"}   # dense and ssm
 HYBRID_KEYS = {"embed", "final_norm", "blocks", "rem"}
 
 
@@ -25,7 +26,7 @@ def params_from_jax(tree, *, device: str | torch.device = "cuda"):
     """JAX parameter pytree of numpy arrays -> the port's parameter tree of
     tensors on ``device`` (dtypes kept)."""
     if set(tree) not in (DENSE_KEYS, HYBRID_KEYS):
-        raise ValueError(f"expected the dense family's parameter tree "
+        raise ValueError(f"expected the dense or ssm family's parameter tree "
                          f"{sorted(DENSE_KEYS)} or the hybrid family's "
                          f"{sorted(HYBRID_KEYS)}, got {sorted(tree)}")
     dev = resolve_device(device)

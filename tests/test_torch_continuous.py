@@ -3,7 +3,8 @@
 ``ServeEngine(mode="continuous")`` streams and ``stats`` must equal the JAX
 engine's on identical weights (carried over with ``params_from_jax``), for
 reduced ``recurrentgemma-2b`` (the hybrid family's ``blocks`` tree of rings
-and recurrent state) and reduced ``smollm-360m`` (dense), with more
+and recurrent state), reduced ``smollm-360m`` (dense) and reduced
+``rwkv6-1.6b`` (the ssm family's ``state`` tree), with more
 requests than slots so that requests are admitted mid-decode. The reference
 pins its own continuous mode to serial decode
 (``tests/test_scheduler.py:186`` and ``:223``). No EOS is set: the
@@ -40,7 +41,7 @@ from repro_torch.weights import params_from_jax  # noqa: E402
 # f32 cache leaves through 2-3 layers: matmul summation order (XLA's dot vs
 # oneDNN), ~1e-7 relative on O(1) values; 1e-4 leaves two decades.
 TOL = 1e-4
-ARCHS = ("recurrentgemma-2b", "smollm-360m")
+ARCHS = ("recurrentgemma-2b", "smollm-360m", "rwkv6-1.6b")
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -92,7 +93,8 @@ def test_streams_and_stats_match_jax_mid_decode_admission(model):
     """Six requests over two slots, budgets 1-9, prompts of 3-89 tokens:
     requests are admitted while others decode, a budget of 1 finishes at
     prefill, and prompts run past the hybrid family's window of 64 and past
-    the 48-position ring, so the ring of ``_kv_to_cache`` is rolled."""
+    the 48-position ring, so the ring of ``_kv_to_cache`` is rolled (the
+    ssm family keeps no positions and ignores ``capacity``)."""
     rng = np.random.default_rng(0)
     reqs = [(rng.integers(0, 512, size=int(n)), int(b))
             for n, b in zip(rng.integers(3, 90, size=6), (4, 9, 1, 7, 5, 2))]
@@ -100,6 +102,20 @@ def test_streams_and_stats_match_jax_mid_decode_admission(model):
     assert [len(s) for s in streams] == [b for _, b in reqs]
     assert teng.stats["prefills"] == 6
     assert teng.stats["peak_concurrency"] == 2
+
+
+def test_streams_match_jax_in_the_references_other_families_setting(model):
+    """The setting of the reference's
+    ``tests/test_scheduler.py::test_continuous_matches_serial_other_families``
+    (its rwkv6 and recurrentgemma cases): capacity 32, ``max_batch`` 2,
+    ``decode_chunk`` 2, three prompts of 3-7 tokens, 4 new tokens each."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, size=rng.integers(3, 8))
+               for _ in range(3)]
+    teng, streams = drain_both(model, [(p, 4) for p in prompts],
+                               capacity=32, max_batch=2, decode_chunk=2)
+    assert [len(s) for s in streams] == [4, 4, 4]
+    assert teng.stats["prefills"] == 3
 
 
 def test_streams_match_jax_ring_of_the_window(model):

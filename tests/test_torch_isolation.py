@@ -109,7 +109,8 @@ def test_importing_the_port_loads_no_jax():
 
 @pytest.mark.parametrize("arch,mode", [("smollm-360m", "paged"),
                                        ("smollm-360m", "continuous"),
-                                       ("recurrentgemma-2b", "continuous")])
+                                       ("recurrentgemma-2b", "continuous"),
+                                       ("rwkv6-1.6b", "continuous")])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            arch, mode):
     from repro_torch.configs import get

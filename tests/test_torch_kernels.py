@@ -302,4 +302,5 @@ def test_kernel_oracles_registry_self_test():
         in problems
     assert check_kernel_oracles({}) == [
         f"csrc/{name}.cu has no KERNEL_ORACLES entry"
-        for name in ("flash_attention", "paged_attention", "rglru_scan")]
+        for name in ("flash_attention", "paged_attention", "rglru_scan",
+                     "wkv6_scan")]

@@ -1,7 +1,7 @@
 """The port's CUDA kernels — paged attention (decode and the speculative
-verify window), flash attention and the RG-LRU scan — vs their plain
-PyTorch versions, on the card, and the serving engine on the card vs the
-CPU. JAX-free, so it runs on a GPU host without JAX:
+verify window), flash attention, the RG-LRU scan and the WKV scan — vs
+their plain PyTorch versions, on the card, and the serving engine on the
+card vs the CPU. JAX-free, so it runs on a GPU host without JAX:
 
   PYTHONPATH=src python -m pytest --noconftest -m cuda \\
       tests/test_torch_kernels_cuda.py
@@ -15,7 +15,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import (attention_ref, flash_attention,  # noqa: E402
                                  paged_attention, paged_attention_multi,
                                  paged_attention_multi_ref,
-                                 paged_attention_ref, rglru_ref, rglru_scan)
+                                 paged_attention_ref, rglru_ref, rglru_scan,
+                                 wkv6_scan, wkv6_scan_ref)
 from torch_paged_cases import (TOL_F32, bf16_excess, multi_case,  # noqa: E402
                                paged_case, tail_lengths, window_lengths)
 
@@ -122,8 +123,9 @@ def test_cuda_engine_streams_match_cpu(cuda_device):
             for n in rng.integers(3, 30, size=5)]
     streams = []
     for device in ("cpu", cuda_device):
-        eng = ServeEngine(cfg, params, capacity=48, max_batch=3,
-                          block_size=8, num_blocks=8, device=device)
+        eng = ServeEngine(cfg, params, mode="paged", capacity=48,
+                          max_batch=3, block_size=8, num_blocks=8,
+                          device=device)
         rids = [eng.submit(p, b) for p, b in reqs]
         before = paged_attention.launches
         res = eng.run()
@@ -166,8 +168,9 @@ def test_cuda_spec_engine_streams_match_cpu(cuda_device):
             for n in rng.integers(3, 30, size=5)]
     runs = []
     for device in ("cpu", cuda_device):
-        eng = ServeEngine(cfg, params, capacity=48, max_batch=3,
-                          block_size=8, num_blocks=9, speculate=spec,
+        eng = ServeEngine(cfg, params, mode="paged", capacity=48,
+                          max_batch=3, block_size=8, num_blocks=9,
+                          speculate=spec,
                           device=device)
         rids = [eng.submit(p, b) for p, b in reqs]
         before = (paged_attention.launches, paged_attention_multi.launches)
@@ -304,4 +307,129 @@ def test_cuda_continuous_hybrid_streams_match_cpu(cuda_device):
         streams.append([res[r] for r in rids])
     # 5 layers: one (rec, rec, attn) block and two trailing rec layers
     assert launched == (1 * len(reqs), 4 * len(reqs))
+    assert streams[0] == streams[1]
+
+
+# WKV scan, kernel vs plain version. Both carry the state in f32 and round
+# its update the same way (k v, u (k v), each sum, w S), so the final states
+# agree bit for bit. y is each column's Dh-term dot product, summed in
+# another order: each rounding moves it by at most 2**-24 of one term, and
+# the recurrence run on |inputs| bounds the terms' summed magnitude M, so
+# the limit is 16 units of roundoff of M; in bf16 y is also rounded once,
+# which may move it by one bf16 ulp, 2**-7 of |y|.
+WKV_UNITS = 16 * 2 ** -24
+WKV_BF16_RTOL = 2 ** -7
+
+
+def wkv_inputs(device, B, S, H, Dh, *, seed, dtype=torch.float32,
+               state=True):
+    """r/k/v ``[B, S, H, Dh]`` in ``dtype``, the decay w (0.98 sigmoid of a
+    normal draw, as the JAX package's kernel test draws it) in f32, u
+    ``[H, Dh]`` and an initial state (or None), on ``device``."""
+    g = torch.Generator().manual_seed(seed)
+    r, k, v, wn = (torch.randn((B, S, H, Dh), generator=g) for _ in range(4))
+    u = 0.1 * torch.randn((H, Dh), generator=g)
+    s0 = torch.randn((B, H, Dh, Dh), generator=g) if state else None
+    return (*(t.to(device, dtype) for t in (r, k, v)),
+            (0.98 * torch.sigmoid(wn)).to(device), u.to(device),
+            None if s0 is None else s0.to(device))
+
+
+def check_wkv(args):
+    """Run the kernel and the plain version on ``args``; the final states
+    must be equal and y within the limit above. Returns the kernel's y."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = wkv6_scan.launches
+    y, s_t = wkv6_scan(*args)
+    torch.cuda.synchronize()
+    assert wkv6_scan.launches == before + 1
+    ry, rs = wkv6_scan_ref(*args)
+    r, k, v, w, u, s0 = args
+    my, _ = wkv6_scan_ref(r.float().abs(), k.float().abs(), v.float().abs(),
+                          w, u.abs(), None if s0 is None else s0.abs())
+    assert y.dtype == r.dtype and y.shape == r.shape
+    assert s_t.dtype == torch.float32 and torch.equal(s_t, rs)
+    lim = WKV_UNITS * my
+    if r.dtype == torch.bfloat16:
+        lim = lim + WKV_BF16_RTOL * ry.float().abs()
+    assert float(((y.float() - ry.float()).abs() - lim).max()) <= 0
+    return y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("state", [False, True], ids=["zero", "S0"])
+@pytest.mark.parametrize("B,S,H,Dh", [
+    (1, 128, 2, 64), (1, 256, 1, 128), (1, 192, 3, 64),  # the JAX sweep
+    (2, 37, 4, 128),                                     # odd S
+    (4, 1, 32, 64),                                      # a decode step
+    (1, 2300, 32, 64),                                   # full-width prefill
+])
+def test_cuda_wkv6_scan_matches_plain_version(cuda_device, dtype, state, B,
+                                              S, H, Dh):
+    check_wkv(wkv_inputs(cuda_device, B, S, H, Dh, seed=S + Dh,
+                         dtype=dtype, state=state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_wkv6_scan_reads_strided_views(cuda_device, dtype):
+    """r/k/v/w read through their strides: ``[B, H, S, Dh]`` tensors viewed
+    as ``[B, S, H, Dh]``, and channel slices of a wider last axis (a fused
+    projection); the result equals the contiguous call's, bit for bit."""
+    r, k, v, w, u, s0 = wkv_inputs(cuda_device, 2, 29, 3, 64, seed=5,
+                                   dtype=dtype)
+    rv = r.transpose(1, 2).contiguous().transpose(1, 2)
+    wide = torch.cat([k, k], dim=-1)
+    kv_ = wide[..., 64:]                  # head stride 128, channels dense
+    wv = w.transpose(1, 2).contiguous().transpose(1, 2)
+    assert rv.stride() != r.stride() and kv_.stride() != k.stride()
+    y = check_wkv((rv, kv_, v, wv, u, s0))
+    y0, _ = wkv6_scan(r, k, v, w, u, s0)
+    assert torch.equal(y, y0)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_scan_chains_states(cuda_device):
+    """A prompt scanned whole equals it scanned in two parts, the second
+    from the first's final state, and then one decode step at a time: the
+    prefill-then-decode path, bit for bit."""
+    r, k, v, w, u, s0 = wkv_inputs(cuda_device, 2, 40, 4, 64, seed=6)
+    y, s_t = wkv6_scan(r, k, v, w, u, s0)
+    ya, sa = wkv6_scan(*(t[:, :33] for t in (r, k, v, w)), u, s0)
+    parts, st = [ya], sa
+    for t in range(33, 40):
+        yt, st = wkv6_scan(*(x[:, t:t + 1] for x in (r, k, v, w)), u, st)
+        parts.append(yt)
+    assert torch.equal(torch.cat(parts, dim=1), y) and torch.equal(st, s_t)
+
+
+@pytest.mark.cuda
+def test_cuda_continuous_rwkv6_streams_match_cpu(cuda_device):
+    """Continuous serving of the ssm family on the card runs the WKV kernel
+    once per layer per prefill and per decode step, and in f32 (TF32 off)
+    gives the CPU engine's streams."""
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get("rwkv6-1.6b").reduced().with_overrides(n_layers=3)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, cfg.vocab, size=int(n)), 8)
+            for n in rng.integers(3, 90, size=5)]
+    streams = []
+    for device in ("cpu", cuda_device):
+        eng = ServeEngine(cfg, params, capacity=96, max_batch=2,
+                          decode_chunk=3, device=device)
+        rids = [eng.submit(p, b) for p, b in reqs]
+        before = wkv6_scan.launches
+        res = eng.run()
+        launched = wkv6_scan.launches - before
+        streams.append([res[r] for r in rids])
+    st = eng.stats
+    assert launched == cfg.n_layers * (st["prefills"] + st["decode_steps"])
     assert streams[0] == streams[1]

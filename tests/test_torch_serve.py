@@ -226,8 +226,9 @@ def test_streams_shared_prefix(model):
 
 def test_stream_deltas_and_unported_options(model):
     _, tcfg, _, tparams = model
-    eng = repro_torch.serve.ServeEngine(tcfg, tparams, capacity=32,
-                                        max_batch=2, device="cpu")
+    eng = repro_torch.serve.ServeEngine(tcfg, tparams, mode="paged",
+                                        capacity=32, max_batch=2,
+                                        device="cpu")
     rids = [eng.submit(np.arange(1, 6), 5), eng.submit(np.arange(2, 4), 3)]
     seen = {r: [] for r in rids}
     dones = set()
@@ -242,4 +243,5 @@ def test_stream_deltas_and_unported_options(model):
     for kw in ({"mode": "cohort"}, {"kv_impl": "reference"},
                {"kv_impl": "pallas"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            repro_torch.serve.ServeEngine(tcfg, tparams, device="cpu", **kw)
+            repro_torch.serve.ServeEngine(tcfg, tparams, device="cpu",
+                                          **{"mode": "paged", **kw})

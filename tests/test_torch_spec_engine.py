@@ -84,9 +84,10 @@ def drain_all(model, reqs, k, *, self_draft=False, alloc=None, **kw):
           "block_size": 8, **kw}
     jeng = repro.serve.ServeEngine(jcfg, jparams, mode="paged",
                                    kv_impl="kernel", speculate=jspec, **kw)
-    teng = repro_torch.serve.ServeEngine(tcfg, tparams, speculate=tspec,
+    teng = repro_torch.serve.ServeEngine(tcfg, tparams, mode="paged",
+                                         speculate=tspec, device="cpu", **kw)
+    base = repro_torch.serve.ServeEngine(tcfg, tparams, mode="paged",
                                          device="cpu", **kw)
-    base = repro_torch.serve.ServeEngine(tcfg, tparams, device="cpu", **kw)
     if alloc is not None:
         teng.pool.alloc = alloc(num_blocks=teng.pool.num_blocks,
                                 block_size=kw["block_size"],
@@ -175,7 +176,8 @@ def test_spec_eos_inside_an_accepted_window(model):
     _, tcfg, _, tparams = model[:4]
     prompt = np.arange(5, 17)
     kw = dict(capacity=48, max_batch=2, block_size=8, decode_chunk=4)
-    base = repro_torch.serve.ServeEngine(tcfg, tparams, device="cpu", **kw)
+    base = repro_torch.serve.ServeEngine(tcfg, tparams, mode="paged",
+                                         device="cpu", **kw)
     rid = base.submit(prompt, 12)
     ref = base.run()[rid]
     k = 3
@@ -184,7 +186,7 @@ def test_spec_eos_inside_an_accepted_window(model):
             continue
         # which verify row emits the EOS? the row index within its window
         eng = repro_torch.serve.ServeEngine(
-            tcfg, tparams, device="cpu", eos_id=ref[cut],
+            tcfg, tparams, mode="paged", device="cpu", eos_id=ref[cut],
             speculate=spec_pair(model, k)[1], **kw)
         rows = []
         chunk = eng._spec_decode
@@ -293,10 +295,11 @@ def test_speculate_checks_match_jax(model):
     moe = repro_torch.serve.SpecConfig(tdc.with_overrides(family="moe"),
                                        tdraft, k=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        repro_torch.serve.ServeEngine(tcfg, tparams, speculate=moe,
-                                      device="cpu")
+        repro_torch.serve.ServeEngine(tcfg, tparams, mode="paged",
+                                      speculate=moe, device="cpu")
     if not torch.cuda.is_available():   # the default device is the card
         with pytest.raises(RuntimeError, match="CUDA"):
             repro_torch.serve.ServeEngine(
-                tcfg, tparams, speculate=repro_torch.serve.SpecConfig(
+                tcfg, tparams, mode="paged",
+                speculate=repro_torch.serve.SpecConfig(
                     tdc, tdraft, k=2))
