@@ -7,10 +7,15 @@ Phases, in order; any failure exits non-zero (no phase is caught):
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. build every CUDA kernel of the serving paths from ``src/repro_torch/
    kernels/csrc`` with ``nvcc`` (sm_90a; one ``nvcc`` per source, all
-   started together), timed;
-3. hold the paged decode kernel against its plain PyTorch version at the
-   serving path's shapes (bf16) and at a small f32 shape — dead slots, tail
-   pages and aliased pages included — and time both with CUDA events;
+   started together), timed, with ptxas's register and spill report and
+   each flash-attention instantiation's tensor-core (``HMMA``) and f32 FMA
+   instruction counts from ``cuobjdump -sass``: every bf16 instantiation
+   must hold ``HMMA``;
+3. hold the paged decode kernel (a cluster of blocks per slot and KV head,
+   each on a share of the slot's positions, merged through distributed
+   shared memory) against its plain PyTorch version at the serving path's
+   shapes (bf16) and at a small f32 shape — dead slots, tail pages and
+   aliased pages included — and time both with CUDA events;
 4. serve full-width ``smollm-360m`` (random weights from a fixed
    ``torch.Generator``) through the paged ``ServeEngine``: 16 seeded
    requests, prompts of 17–300 tokens (two share a 128-token prefix),
@@ -27,8 +32,9 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    of sacrificial kernels and closes after idle time, since the profiler
    can drop a window's earliest and latest records (every profiled drain:
    phases 6, 7b, 10 and 11);
-7. speculative decoding: (a) hold the verify-window kernel against its
-   plain version at the speculative path's shapes (bf16, windows crossing
+7. speculative decoding: (a) hold the verify-window kernel (the decode
+   kernel's cluster body at Q rows) against its plain version at the
+   speculative path's shapes (bf16, windows crossing
    a page, a dead slot, rows past the table's coverage, aliased pages), at
    a small f32 shape, and at a window of one against the decode kernel,
    and time it; (b) serve the phase-4 workload through
@@ -44,8 +50,9 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    kernel and through the plain attention. A profiled speculative drain
    must show the window and flash kernels as often as their wrappers
    counted, and the decode kernel not at all;
-8. hold the flash-attention kernel against its plain version at both
-   prefill shapes — (a) recurrentgemma-2b's: 10 query heads over one KV
+8. hold the flash-attention kernel (bf16 on the tensor cores, ``mma.sync``
+   with P split into two bf16 terms; f32 on the CUDA cores) against its
+   plain version at both prefill shapes — (a) recurrentgemma-2b's: 10 query heads over one KV
    head, Dh 256, a 2 300-token prompt, window 2 048; (b) smollm-360m's: 15
    over 5, Dh 64, 300 tokens, causal — and at edge cases (a tail tile, S
    below one tile, window 1, non-causal, f32); time each beside the plain
@@ -378,6 +385,49 @@ def ptxas_report(logs) -> list[str]:
             elif label and ("registers" in line or "spill" in line):
                 out[-1] += " " + line.split(":", 1)[-1].strip() + ";"
     return out
+
+
+def sass_counts(sass: str) -> dict:
+    """``{label: (HMMA, FFMA)}`` for each ``flash_attention_kernel``
+    instantiation in ``cuobjdump -sass`` output: its tensor-core and f32
+    FMA instructions."""
+    counts, label = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            label = None
+            if KERNEL_SYMBOLS["flash_attention"] in fn.group(1):
+                dh = re.search(r"Li(\d+)E", fn.group(1))
+                dtype = "bf16" if "bfloat16" in fn.group(1) else "f32"
+                label = f"flash_attention_kernel<{dtype}, {dh.group(1)}>"
+                counts[label] = [0, 0]
+        elif label:
+            counts[label][0] += bool(re.search(r"\bHMMA\b", line))
+            counts[label][1] += bool(re.search(r"\bFFMA\b", line))
+    return {label: tuple(n) for label, n in counts.items()}
+
+
+def check_sass(counts: dict) -> list[str]:
+    """Every bf16 flash instantiation (head dims 32, 64, 128, 256) runs its
+    products on the tensor cores: its SASS holds ``HMMA``. One line per
+    instantiation."""
+    for dh in (32, 64, 128, 256):
+        label = f"flash_attention_kernel<bf16, {dh}>"
+        if counts.get(label, (0, 0))[0] == 0:
+            raise AssertionError(f"{label}: no HMMA in its SASS "
+                                 f"({counts.get(label, 'not found')})")
+    return [f"{label}: {n_hmma} HMMA, {n_ffma} FFMA in its SASS"
+            for label, (n_hmma, n_ffma) in sorted(counts.items())]
+
+
+def sass_report(build) -> list[str]:
+    """Read the built flash library's SASS with ``cuobjdump`` (beside
+    ``nvcc``; a missing tool fails the run) and check it (``check_sass``)."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [tool, "-sass", str(build.library_path("flash_attention"))],
+        check=True, capture_output=True, text=True).stdout
+    return check_sass(sass_counts(sass))
 
 
 def reset_counts():
@@ -1468,7 +1518,7 @@ def main() -> int:
     print(f"[2] built {', '.join(KERNEL_SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s (the profiler's first start, "
           f"{t_warm:.1f} s, beside it)")
-    for line in ptxas_report(logs):
+    for line in ptxas_report(logs) + sass_report(build):
         print(f"[2] {line}")
     lap("[2]")
 

@@ -17,8 +17,9 @@ from repro_torch.kernels import (attention_ref, flash_attention,  # noqa: E402
                                  paged_attention_multi_ref,
                                  paged_attention_ref, rglru_ref, rglru_scan,
                                  wkv6_scan, wkv6_scan_ref)
-from torch_paged_cases import (TOL_F32, bf16_excess, multi_case,  # noqa: E402
-                               paged_case, tail_lengths, window_lengths)
+from torch_paged_cases import (BF16_ATOL, TOL_F32, bf16_excess,  # noqa: E402
+                               multi_case, paged_case, tail_lengths,
+                               window_lengths)
 
 
 @pytest.fixture
@@ -219,6 +220,8 @@ def check_close(out, ref):
     (1, 10, 1, 37, 256, True, None),    # S below one tile
     (2, 4, 2, 77, 32, False, 16),       # window without causality
     (1, 2, 1, 50, 128, True, 1),        # window 1: each row sees itself
+    (1, 6, 2, 200, 32, True, None),     # Dh 32: the scale is not 2**-k
+    (2, 4, 1, 160, 128, True, 48),      # Dh 128, window: the same
 ])
 def test_cuda_flash_matches_plain_version(cuda_device, dtype, B, H, Hkv, S,
                                           Dh, causal, window):
@@ -250,6 +253,149 @@ def test_cuda_flash_dead_rows_and_strided_views(cuda_device, dtype):
                                    ks.transpose(1, 2).contiguous(),
                                    vs.transpose(1, 2).contiguous(),
                                    causal=True, window=64))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_full_prefill_shape(cuda_device):
+    """recurrentgemma-2b's prefill as the model hands it over: 10 query
+    heads over one KV head, Dh 256, a 2 300-token prompt, window 2 048,
+    [B, S, H, Dh] tensors viewed as [B, H, S, Dh]; bf16 on the tensor-core
+    body and f32 on the CUDA-core one."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in
+                   flash_inputs(cuda_device, dtype, 1, 10, 1, 2300, 2300,
+                                256, seed=3))
+        out = flash_attention(q, k, v, causal=True, window=2048)
+        torch.cuda.synchronize()
+        check_close(out, attention_ref(q, k, v, causal=True, window=2048))
+
+
+def cancelling_case(H=4, S=96, Dh=64, seed=4):
+    """q, k, v (bf16, [1, H, S, Dh]) whose causal rows 1-3 nearly cancel:
+    v at key r (r = 1, 2, 3) is solved, head by head, so that row r's
+    attention output is about 1e-3 of |v| before v is rounded to bf16, while
+    sum_j p_j |v_j| stays O(1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    bf = lambda a: torch.from_numpy(a).bfloat16()   # noqa: E731
+    q = bf(0.3 * rng.standard_normal((1, H, S, Dh), np.float32))
+    k = bf(rng.standard_normal((1, H, S, Dh), np.float32))
+    v = rng.standard_normal((1, H, S, Dh))
+    s = np.einsum("bhqd,bhkd->bhqk", q.double().numpy(),
+                  k.double().numpy()) * Dh ** -0.5
+    for r in (1, 2, 3):
+        p = np.exp(s[0, :, r, :r + 1] - s[0, :, r, :r + 1].max(-1,
+                                                                  keepdims=True))
+        p /= p.sum(-1, keepdims=True)                       # [H, r + 1]
+        rest = np.einsum("hj,hjd->hd", p[:, :r], v[0, :, :r])
+        v[0, :, r] = (1e-3 * rng.standard_normal((H, Dh)) - rest) \
+            / p[:, r:r + 1]
+    return q, k, bf(v.astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_holds_cancelling_rows(cuda_device):
+    """The bf16 body's PV keeps P to ~2**-17 (P split into two bf16 terms):
+    on rows whose values cancel (|plain| << sum p |v|) it holds the
+    unchanged limit, which a PV with P rounded once to bf16 (one-pass, as
+    the library does) exceeds on the same inputs."""
+    q, k, v = (t.to(cuda_device) for t in cancelling_case())
+    out = flash_attention(q, k, v, causal=True)
+    ref = attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    check_close(out, ref)
+    spread = attention_ref(q, k, v.abs(), causal=True).float()
+    rows = slice(1, 4)
+    assert float((ref[:, :, rows].float().abs()
+                  / spread[:, :, rows]).median()) < 0.05
+    # one-pass: unnormalised P = exp(s - max) rounded to bf16 before PV
+    Dh = q.shape[-1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * Dh ** -0.5
+    S = s.shape[-1]
+    s = s.masked_fill(torch.ones(S, S, dtype=torch.bool,
+                                 device=s.device).triu(1), float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    one_pass = (torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(),
+                             v.float()) / p.sum(-1, keepdim=True)).bfloat16()
+    assert bf16_excess(one_pass[:, :, rows].float().cpu(),
+                       ref[:, :, rows].float().cpu()) > 0
+    assert bf16_excess(out[:, :, rows].float().cpu(),
+                       ref[:, :, rows].float().cpu()) <= 0
+
+
+# The decode kernel splits a slot's positions over a cluster of
+# min(8, ceil(n_pages * block_size / 64)) blocks, ceil(length / C) each: 32
+# pages of 16 give C = 8. Lengths: a dead slot (no rank sees anything), one
+# position (one rank), 5 (ranks 5-7 empty), 49 (7 ranks of 7, the last
+# empty), 64 (one rank's coverage), 65, 300, and the full coverage 512;
+# slot 1 shares slot 0's 4 pages.
+CLUSTER_LENGTHS = [64, 300, 0, 1, 5, 49, 65, 512]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,Dh", [(15, 5, 64), (8, 8, 128), (6, 2, 8)])
+def test_cuda_decode_cluster_shares(cuda_device, dtype, H, Hkv, Dh):
+    case = paged_case(11, B_lengths=CLUSTER_LENGTHS, H=H, Hkv=Hkv, Dh=Dh,
+                      L=2, bs=16, n_pages=32, alias=True)
+    q, kp, vp, tables, lengths = (torch.from_numpy(a).to(cuda_device)
+                                  for a in case)
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    before = paged_attention.launches
+    out = paged_attention(q, kp, vp, tables, lengths, 1)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    check_close(out, paged_attention_ref(q, kp, vp, tables, lengths, 1))
+    assert float(out[2].abs().max()) == 0.0   # the dead slot
+    # one position: the output is that position's V row, to the rounding
+    pos0 = vp[tables[3, 0].long(), 0, 1].float()           # [Hkv, Dh]
+    want = pos0.repeat_interleave(H // Hkv, dim=0)
+    assert float((out[3].float() - want).abs().max()) <= \
+        float(BF16_ATOL + 2 ** -7 * want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_long_table_read_in_place(cuda_device, dtype):
+    """A block table wider than the 1 024 entries the kernel stages in
+    shared memory (pages of one position) is read in place."""
+    case = paged_case(13, B_lengths=[1100, 7, 0, 1030], H=6, Hkv=2, Dh=64,
+                      L=1, bs=1, n_pages=1100)
+    q, kp, vp, tables, lengths = (torch.from_numpy(a).to(cuda_device)
+                                  for a in case)
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    out = paged_attention(q, kp, vp, tables, lengths, 0)
+    torch.cuda.synchronize()
+    check_close(out, paged_attention_ref(q, kp, vp, tables, lengths, 0))
+    assert float(out[2].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Q,H,Hkv,Dh", [
+    (4, 15, 5, 64),     # k = 3 at smollm-360m's heads: 12 rows, G 3
+    (8, 16, 2, 128),    # the 64-row limit
+])
+def test_cuda_multi_kernel_cluster_shares(cuda_device, dtype, Q, H, Hkv,
+                                          Dh):
+    """The verify window on the decode kernel's cluster body, C = 8: rows
+    whose limits fall in other ranks' shares, or at or below 0."""
+    lengths = list(CLUSTER_LENGTHS)
+    lengths[3] = Q - 2          # rows 0 and 1 see nothing
+    case = multi_case(12, lengths=lengths, Q=Q, H=H, Hkv=Hkv, Dh=Dh, L=2,
+                      bs=16, n_pages=32, alias=True)
+    q, kp, vp, tables, lengths = (torch.from_numpy(a).to(cuda_device)
+                                  for a in case)
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    before = paged_attention_multi.launches
+    out = paged_attention_multi(q, kp, vp, tables, lengths, 0)
+    torch.cuda.synchronize()
+    assert paged_attention_multi.launches == before + 1
+    check_close(out, paged_attention_multi_ref(q, kp, vp, tables, lengths,
+                                               0))
+    assert float(out[2].abs().max()) == 0.0   # the dead slot
+    assert float(out[3, :2].abs().max()) == 0.0
 
 
 @pytest.mark.cuda

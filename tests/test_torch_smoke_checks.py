@@ -3,7 +3,8 @@
 The profiled drains' traced-launch check (``check_trace``) must pass a
 complete trace and fail when the trace lost launches, when a kernel was
 not launched, when its plain version ran in its place and when a kernel of
-another path ran. The WKV bound and the launch count a
+another path ran. The SASS check must fail when a bf16 flash-attention
+instantiation holds no tensor-core instruction. The WKV bound and the launch count a
 continuous rwkv6 drain must make are worked out from shapes. JAX-free.
 """
 import importlib.util
@@ -120,3 +121,32 @@ def test_device_records_fallback_reads_the_same_records():
 
     want, got = by_name(raw), by_name(fallback)
     assert all(abs(want[n] - got[n]) <= 10 for n in want)
+
+
+def sass(hmma_at=(32, 64, 128, 256)):
+    """``cuobjdump -sass`` text of the flash library: each instantiation's
+    function line, two FFMA lines, and for the bf16 head dims in
+    ``hmma_at`` an HMMA line."""
+    out = []
+    for dtype, tail in (("13__nv_bfloat16", "S4_S4_PS2_"), ("f", "S3_S3_PS1_")):
+        for dh in (256, 128, 64, 32):
+            out.append(f"\t\tFunction : _ZN51_GLOBAL__N__e7510225_18_flash_"
+                       f"attention_cu_23f0aea722flash_attention_kernelI"
+                       f"{dtype}Li{dh}EEEvPKT_{tail}iiiiNS_7StridesEiif")
+            out += ["        /*7790*/  FFMA R214, R214, R235, R227 ;"] * 2
+            if dtype != "f" and dh in hmma_at:
+                out.append("        /*41c0*/  HMMA.16816.F32.BF16 R12, R64, "
+                           "R4, RZ ;")
+    return "\n".join(out)
+
+
+def test_sass_check_needs_hmma_in_every_bf16_flash_body():
+    counts = smoke.sass_counts(sass())
+    assert counts["flash_attention_kernel<bf16, 64>"] == (1, 2)
+    assert counts["flash_attention_kernel<f32, 256>"] == (0, 2)
+    assert len(smoke.check_sass(counts)) == 8
+    with pytest.raises(AssertionError, match="bf16, 128"):
+        smoke.check_sass(smoke.sass_counts(sass(hmma_at=(32, 64, 256))))
+    missing = {k: v for k, v in counts.items() if "bf16, 32>" not in k}
+    with pytest.raises(AssertionError, match="not found"):
+        smoke.check_sass(missing)
