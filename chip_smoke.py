@@ -74,7 +74,9 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    ``rwkv6-1.6b``'s prefill shape (B 1, a 2 300-token prompt, 32 heads of
    64) with bf16 and f32 inputs, at its decode step (B 4, S 1, from a
    nonzero state), at Dh 128 with S 37, and through strided views, and time
-   each; then serve full-width ``rwkv6-1.6b`` (random bf16 weights from a
+   each; scan the bf16 prefill as 2 299 steps and one decode step from
+   their state, which must give the whole scan's y and final state bit for
+   bit; then serve full-width ``rwkv6-1.6b`` (random bf16 weights from a
    fixed ``torch.Generator``) through ``ServeEngine(mode="continuous")`` on
    phase 10's workload. Every prefill and every decode step must launch the
    WKV kernel once per layer (24), and the plain WKV recurrence must not run.
@@ -1045,7 +1047,7 @@ def check_flash_kernel(torch):
     return entry
 
 
-def check_rglru_kernel(torch, R):
+def check_rglru_kernel(torch, R, card):
     """Phase 9: the RG-LRU scan kernel vs its plain version at the hybrid
     prefill's shape ``[1, 2 300, R]`` in bf16 and f32, and at an odd S, each
     timed beside the plain version. No single PyTorch call computes a
@@ -1090,7 +1092,7 @@ def check_rglru_kernel(torch, R):
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         print(f"[9] rglru_scan B=1 S={S} {str(dtype)[6:]}: {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by}), "
-              f"library none, L2 cold")
+              f"library none, L2 cold; {card}")
         if entry is None:
             entry = {"name": "rglru_scan", "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
@@ -1268,14 +1270,27 @@ def wkv_bound_ms(r, state: bool):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_wkv_kernel(torch, cfg):
+def chains_bitwise(torch, scan, args, split):
+    """Whether a WKV scan of ``args`` (r, k, v, w, u, s0) whole equals its
+    first ``split`` steps and then the rest from their final state, y and
+    the final state bit for bit: the prefill-then-decode path."""
+    r, k, v, w, u, s0 = args
+    y, s_t = scan(*args)
+    ya, sa = scan(*(t[:, :split] for t in (r, k, v, w)), u, s0)
+    yb, sb = scan(*(t[:, split:] for t in (r, k, v, w)), u, sa)
+    return torch.equal(torch.cat([ya, yb], dim=1), y) and torch.equal(sb, s_t)
+
+
+def check_wkv_kernel(torch, cfg, card):
     """Phase 11a: the WKV scan kernel vs its plain version at the serving
     path's shapes — rwkv6-1.6b's prefill (B 1, a 2 300-token prompt, H 32,
     Dh 64) with bf16 and f32 inputs from a zero state, and its decode step
     (B 4, S 1) from a nonzero state — and at Dh 128 with an odd S, and
-    through strided views; each timed beside the plain version. No single
-    PyTorch call computes the recurrence, so there is no library
-    yardstick. Returns the kernels-line entry of the bf16 prefill."""
+    through strided views; each timed beside the plain version. The bf16
+    prefill is also scanned as 2 299 steps and then one decode step from
+    their state, which must give the whole scan's bits. No single PyTorch
+    call computes the recurrence, so there is no library yardstick.
+    Returns the kernels-line entry of the bf16 prefill."""
     from repro_torch.kernels import wkv6_scan, wkv6_scan_ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
@@ -1325,6 +1340,14 @@ def check_wkv_kernel(torch, cfg):
                 and torch.equal(s_t, rs)):
             raise AssertionError(f"wkv6_scan {label}: kernel and plain "
                                  f"version disagree")
+        if label == "prefill":
+            chained = chains_bitwise(torch, wkv6_scan, args, S - 1)
+            print(f"[11a] wkv6_scan {label}: {S} steps whole against {S - 1} "
+                  f"steps then one decode step from their state: y and "
+                  f"final state bitwise equal {chained}")
+            if not chained:
+                raise AssertionError("wkv6_scan: the prefill-then-decode "
+                                     "chain differs from the whole scan")
         ms = cuda_ms(torch, lambda: wkv6_scan(*args), flush=flush)
         # the plain version is a host loop of ~8 launches a step: at a
         # prompt's length a few calls time it well enough
@@ -1334,7 +1357,7 @@ def check_wkv_kernel(torch, cfg):
         bound, bound_by = wkv_bound_ms(r, state)
         print(f"[11a] wkv6_scan {label}: {ms:.4f} ms, plain {plain_ms:.4f} "
               f"ms, bound {bound:.5f} ms ({bound_by}), library none, "
-              f"L2 cold")
+              f"L2 cold; {card}")
         if entry is None:
             entry = {"name": "wkv6_scan", "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/wkv6_scan.cu",
@@ -1573,7 +1596,7 @@ def main() -> int:
     hcfg = get(HYBRID_ARCH).config
     kernels.append(check_flash_kernel(torch))
     lap("[8]")
-    kernels.append(check_rglru_kernel(torch, hcfg.lru_width))
+    kernels.append(check_rglru_kernel(torch, hcfg.lru_width, card))
     lap("[9]")
     hparams = init_params(hcfg, torch.Generator(
         device="cuda").manual_seed(SEED), device=device)
@@ -1597,7 +1620,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     scfg = get(SSM_ARCH).config
-    kernels.append(check_wkv_kernel(torch, scfg))
+    kernels.append(check_wkv_kernel(torch, scfg, card))
     lap("[11a]")
     sparams = init_params(scfg, torch.Generator(
         device="cuda").manual_seed(SEED), device=device)

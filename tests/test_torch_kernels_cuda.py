@@ -401,7 +401,9 @@ def test_cuda_multi_kernel_cluster_shares(cuda_device, dtype, Q, H, Hkv,
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,R", [(1, 128, 128), (2, 256, 256),
                                    (1, 512, 384), (1, 2300, 2560),
-                                   (3, 37, 100)])
+                                   (3, 37, 100),
+                                   (2, 5, 2568),     # a masked tail tile
+                                   (1, 1001, 2560)])  # S past a ring stage
 def test_cuda_rglru_scan_matches_plain_version(cuda_device, B, S, R):
     """f32: the kernel and the plain version compute the same rounded
     multiply-then-add chain, bit for bit. bf16: the kernel carries h in f32,
@@ -422,6 +424,26 @@ def test_cuda_rglru_scan_matches_plain_version(cuda_device, B, S, R):
     assert torch.equal(out, rglru_ref(ab.float(), xb.float()).bfloat16())
     assert float((out.float() - rglru_ref(ab, xb).float()).abs().max()) \
         < 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_rglru_scan_reads_unaligned_rows(cuda_device, dtype):
+    """Inputs and output whose rows do not start on 16 bytes: a and x as
+    contiguous views one element into their storage, and R 101, whose rows
+    drift across 16-byte boundaries. The kernel stages such rows through
+    the 16-byte units around them; the result is the plain version's, bit
+    for bit (bf16: against the inputs widened to f32)."""
+    B, S, R = 2, 300, 101
+    g = torch.Generator(device="cpu").manual_seed(R)
+    a = torch.sigmoid(torch.randn((B, S, R), generator=g))
+    x = torch.randn((B, S, R), generator=g)
+    a, x = (torch.cat([t.new_zeros(1), t.flatten()]).to(cuda_device, dtype)
+            [1:].view(B, S, R) for t in (a, x))
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    out = rglru_scan(a, x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, rglru_ref(a.float(), x.float()).to(dtype))
 
 
 @pytest.mark.cuda
@@ -510,6 +532,8 @@ def check_wkv(args):
     (2, 37, 4, 128),                                     # odd S
     (4, 1, 32, 64),                                      # a decode step
     (1, 2300, 32, 64),                                   # full-width prefill
+    (3, 1000, 5, 64),      # S past whole chunks, an odd B H
+    (1, 600, 16, 128),     # Dh 128 on most of the card
 ])
 def test_cuda_wkv6_scan_matches_plain_version(cuda_device, dtype, state, B,
                                               S, H, Dh):
@@ -548,6 +572,52 @@ def test_cuda_wkv6_scan_chains_states(cuda_device):
         yt, st = wkv6_scan(*(x[:, t:t + 1] for x in (r, k, v, w)), u, st)
         parts.append(yt)
     assert torch.equal(torch.cat(parts, dim=1), y) and torch.equal(st, s_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_wkv6_scan_chains_full_width(cuda_device, dtype):
+    """At rwkv6-1.6b's prefill shape, a 2 300-step scan equals 2 299 steps
+    and then one decode step from their final state, y and the final state
+    bit for bit."""
+    r, k, v, w, u, _ = wkv_inputs(cuda_device, 1, 2300, 32, 64, seed=7,
+                                  dtype=dtype, state=False)
+    y, s_t = wkv6_scan(r, k, v, w, u)
+    ya, sa = wkv6_scan(*(t[:, :2299] for t in (r, k, v, w)), u)
+    yb, sb = wkv6_scan(*(t[:, 2299:] for t in (r, k, v, w)), u, sa)
+    assert torch.equal(torch.cat([ya, yb], dim=1), y)
+    assert torch.equal(sb, s_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_wkv6_scan_reads_unaligned_rows(cuda_device, dtype):
+    """r/k/v/w whose rows do not start on 16 bytes: channel slices one
+    element into a wider last axis, and v with an odd sequence stride; and
+    s0 a contiguous view one float into its storage. The kernel stages such
+    rows through the 16-byte units around them and reads such a state a
+    float at a time; the result equals the contiguous call's, bit for
+    bit."""
+    r, k, v, w, u, s0 = wkv_inputs(cuda_device, 2, 45, 3, 64, seed=8,
+                                   dtype=dtype)
+
+    def shifted(t):   # t's values, each row one element into a wider row
+        wide = torch.zeros(t.shape[:-1] + (t.shape[-1] + 3,),
+                           dtype=t.dtype, device=t.device)
+        wide[..., 1:-2] = t
+        return wide[..., 1:-2]
+
+    vs = torch.zeros((2, 45, 3 * 64 + 1), dtype=dtype, device=cuda_device)
+    vs[..., :-1] = v.flatten(2)
+    views = (shifted(r), shifted(k), vs[..., :-1].view(2, 45, 3, 64),
+             shifted(w))
+    assert all(t.data_ptr() % 16 != 0 or t.stride(1) * t.element_size() % 16
+               for t in views)
+    s0u = torch.cat([s0.new_zeros(1), s0.flatten()])[1:].view_as(s0)
+    assert s0u.is_contiguous() and s0u.data_ptr() % 16 != 0
+    y = check_wkv((*views, u, s0u))
+    y0, _ = wkv6_scan(r, k, v, w, u, s0)
+    assert torch.equal(y, y0)
 
 
 @pytest.mark.cuda

@@ -150,3 +150,22 @@ def test_sass_check_needs_hmma_in_every_bf16_flash_body():
     missing = {k: v for k, v in counts.items() if "bf16, 32>" not in k}
     with pytest.raises(AssertionError, match="not found"):
         smoke.check_sass(missing)
+
+
+def test_chain_check_holds_the_plain_scan_and_fails_a_cut_dependent_one():
+    """The prefill-then-decode chain check passes the plain WKV scan, whose
+    steps do not depend on where a sequence is cut, and fails a scan whose
+    y does (here: rounded differently for a one-step call)."""
+    from repro_torch.kernels import wkv6_scan_ref
+
+    g = torch.Generator().manual_seed(0)
+    r, k, v, wn = (torch.randn((1, 9, 2, 64), generator=g) for _ in range(4))
+    args = [r, k, v, 0.98 * torch.sigmoid(wn),
+            0.1 * torch.randn((2, 64), generator=g), None]
+    assert smoke.chains_bitwise(torch, wkv6_scan_ref, args, 8)
+
+    def cut_dependent(r, k, v, w, u, s0=None):
+        y, s_t = wkv6_scan_ref(r, k, v, w, u, s0)
+        return (y.bfloat16().float() if r.shape[1] == 1 else y), s_t
+
+    assert not smoke.chains_bitwise(torch, cut_dependent, args, 8)
