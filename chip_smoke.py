@@ -84,7 +84,20 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    held in f32 to the plain version's under a stated error model whose
    limit has at least twice the measured rounding noise (plain version vs
    f64); a profiled drain must show the kernel as often as its wrapper
-   counted.
+   counted;
+12. the paper's decentralized bilevel run (``repro_torch.core``), which
+   runs no TPU kernel and so adds none: the §6 logistic-regression
+   hyperparameter workload as the JAX package's benchmarks build it
+   (a9a-syn 8 000 x 123 split 70/30, ``ring(8)``, 50 samples per node,
+   J = 10 with randomized truncation, the paper's step sizes). (a) fig1:
+   DSBO, GDSBO, MDBO and VRDBO, 60 steps each, fused: one CUDA graph
+   capture and six replays, and the upper loss must fall; (b) MDBO and
+   VRDBO per_step against fused, bit for bit, on the dense and
+   ``ring_rolled`` mixes; (c) the card against the port's CPU run on the
+   same batches and J̃, within a stated f32 limit; (e) MDBO at K = 16, and
+   through the device sampler on (a)'s cached graph. Prints steps/s of
+   both dispatches and the card's busy share over one 10-step chunk of
+   each.
 
 Prints a ``{"kernels": [...]}`` line naming all five kernels, then the
 card's name and power limit, and as its last line ``{"ok": true,
@@ -211,6 +224,24 @@ WKV_UNITS = 16 * 2 ** -24
 # WKV_UNITS M element by element. The plain version against the same
 # recurrence in f64 is the rounding noise, which must stay within half that
 # limit (2x headroom).
+
+# phase 12: the paper's decentralized bilevel run, the §6 workload as the
+# JAX package's benchmarks build it (benchmarks/common.py, ``build``):
+# a9a-syn (8 000 x 123, 2 classes, seed 0) split 70/30, ring(8), batch
+# 400 / K per node, logreg_hyperopt(d=123, lip_gy=5), J = 10 with the
+# paper's randomized truncation, and the paper's step sizes (PAPER_HP,
+# copied: the smoke run imports nothing of the benchmarks)
+BL_N, BL_D, BL_K, BL_BATCH_TOTAL, BL_J, BL_LIP = 8_000, 123, 8, 400, 10, 5.0
+BL_HP = {"dsbo": (0.1, 1.0, 1.0, 1.0, 1.0), "gdsbo": (0.1, 1.0, 1.0, 1.0, 1.0),
+         "mdbo": (0.1, 1.0, 1.0, 1.0, 1.0), "vrdbo": (0.33, 5.0, 5.0, 1.0, 1.0)}
+BL_FIG1_STEPS, BL_EVAL = 60, 10   # fig1_loss_curves.py's run
+BL_STEPS = 20                     # the dispatch, CPU and K = 16 checks
+# The card against the port's own CPU run (TF32 off): the same f32 ops on
+# the same batches and J̃, summed in other orders by other libraries, so
+# each step moves by a few f32 ulps, which 20 steps of contracting updates
+# carry without growth. The limits are on the losses and on max |x|, |y|
+# differences, ~1e3 x the f32 unit roundoff at these magnitudes.
+TOL_BL_LOSS, TOL_BL_PARAM = 1e-4, 1e-4
 
 
 def card_line() -> str:
@@ -1502,6 +1533,226 @@ def check_replay_ssm(torch, cfg, params, prompts, streams, device):
                              "less than 2x headroom")
 
 
+def bilevel_build(K):
+    """The §6 workload at K nodes: (problem, cfg, sampler factory, topology,
+    eval batch)."""
+    from repro_torch.core import HypergradConfig, logreg_hyperopt, ring
+    from repro_torch.data import (NodeSampler, make_classification,
+                                  shard_to_nodes, train_val_split)
+
+    ds = make_classification(n=BL_N, d=BL_D, c=2, seed=SEED)
+    tr, va = train_val_split(ds, 0.3, seed=SEED)
+    trn, van = shard_to_nodes(tr, K), shard_to_nodes(va, K)
+
+    def sampler():
+        return NodeSampler(trn, van, batch=max(BL_BATCH_TOTAL // K, 1),
+                           J=BL_J, seed=SEED)
+
+    prob = logreg_hyperopt(d=BL_D, c=2, lip_gy=BL_LIP)
+    cfg = HypergradConfig(J=BL_J, lip_gy=BL_LIP, randomize=True)
+    return prob, cfg, sampler, ring(K), sampler().eval_batch()
+
+
+def bilevel_engine(torch, algo, K, device, dispatch, mix="dense"):
+    from repro_torch.core import Engine, HParams
+
+    prob, cfg, sampler, topo, eval_batch = bilevel_build(K)
+    eta, a1, a2, b1, b2 = BL_HP[algo]
+    eng = Engine(prob, cfg, HParams(eta, a1, a2, b1, b2), topo, algo=algo,
+                 mix=mix, dispatch=dispatch, device=device)
+    return eng, sampler, eval_batch
+
+
+def timed_run(torch, eng, sampler, eval_batch, steps, **kw):
+    """One run to its end on the card: (result, final state, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, state = eng.run(sampler, eval_batch, steps=steps,
+                         eval_every=BL_EVAL, return_state=True, **kw)
+    torch.cuda.synchronize()
+    return res, state, time.perf_counter() - t0
+
+
+def check_finite_falls(torch, tag, res, state, K=BL_K):
+    """Finite losses and state of the expected shapes, and an upper loss
+    that falls from its start."""
+    if not all(bool(torch.isfinite(t).all()) for t in state):
+        raise AssertionError(f"{tag}: non-finite state")
+    if state.x.shape != (K, BL_D) or state.y.shape != (K, BL_D, 2):
+        raise AssertionError(f"{tag}: state shapes {state.x.shape}, "
+                             f"{state.y.shape}")
+    curve = res.upper_loss
+    if not all(np.isfinite(curve)) or not curve[-1] < curve[0]:
+        raise AssertionError(f"{tag}: the upper loss did not fall: {curve}")
+
+
+def states_equal(torch, a, b) -> bool:
+    return all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def same_curves(a, b, upto=None) -> bool:
+    """``a``'s eval records equal ``b``'s first ``upto`` (all) bit for bit."""
+    return all(getattr(a, k) == getattr(b, k)[:upto] for k in (
+        "steps", "upper_loss", "lower_loss", "consensus_x", "consensus_y"))
+
+
+def busy_share(torch, fn):
+    """The card's busy time over one call of ``fn`` under the profiler,
+    and the call's wall time (ms): the spin burst and idle tail frame the
+    window as in the profiled drains."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        spin_burst(torch)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(TRACE_TAIL_S)
+    recs = [(n, d) for n, d in device_records(torch, prof)
+            if TRACE_SPIN not in n]
+    busy_ms = sum(d for _, d in recs) / 1e6
+    if busy_ms <= 0:
+        raise AssertionError("the profiler recorded no time on the card")
+    return busy_ms, wall_ms, len(recs)
+
+
+def check_bilevel(torch, card):
+    """Phase 12: the paper's decentralized bilevel run on the card.
+
+    (a) fig1: the four paper algorithms, fused, 60 steps (six CUDA graph
+    replays from one capture each); the upper loss must fall; (b) MDBO and
+    VRDBO per_step against fused from the same seed, bit for bit: on the
+    dense mix against (a)'s own run at its first eval, on ``ring_rolled``
+    over two 5-step chunks; (c) the card's per_step runs against the port's
+    CPU run of the same workload and J̃; (e) MDBO at K = 16 (fig3), and
+    (a)'s MDBO engine through the device sampler (the JAX package's
+    ``engine_bench.py`` path), whose batch layout reuses its graph. Then
+    the card's busy share over one 10-step chunk of each dispatch."""
+    from repro_torch.core.hypergrad import tree_map
+    from repro_torch.data import make_device_sampler
+
+    dev = torch.device("cuda")
+    jt = np.random.default_rng(SEED).integers(
+        0, BL_J, (BL_FIG1_STEPS + 1, BL_K))
+    chunks = BL_FIG1_STEPS // BL_EVAL
+    rate = {}
+    fig1 = {}
+    t0 = time.perf_counter()
+    for algo in ("dsbo", "gdsbo", "mdbo", "vrdbo"):
+        eng, sampler, ev = bilevel_engine(torch, algo, BL_K, dev, "fused")
+        kept = {}
+        res, state, sec = timed_run(
+            torch, eng, sampler(), ev, BL_FIG1_STEPS, jtilde=jt,
+            on_eval=lambda t, s: kept.setdefault(t, tree_map(torch.clone, s)))
+        check_finite_falls(torch, f"[12a] {algo}", res, state)
+        if (eng.captures, eng.replays) != (1, chunks):
+            raise AssertionError(f"[12a] {algo}: {eng.captures} captures, "
+                                 f"{eng.replays} replays for {chunks} chunks")
+        fig1[algo] = (eng, res, kept, state, sampler, ev)
+        print(f"[12a] fig1 {algo}: upper loss {res.upper_loss[0]:.4f} -> "
+              f"{res.upper_loss[-1]:.4f}, consensus x {res.consensus_x[-1]:.3g}"
+              f", y {res.consensus_y[-1]:.3g}; {BL_FIG1_STEPS} steps, "
+              f"{eng.replays} replays of one capture, {sec:.2f} s")
+    print(f"[12a] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for algo in ("mdbo", "vrdbo"):
+        # steps/s of whole runs (init and evals included), the graph cached
+        eng, res, kept, _, sampler, ev = fig1[algo]
+        for steps in (BL_EVAL, BL_FIG1_STEPS):
+            _, _, sec = timed_run(torch, eng, sampler(), ev, steps,
+                                  jtilde=jt[:steps + 1])
+            rate[(algo, f"fused, {steps} steps")] = steps / sec
+        # (b) dense: per_step against (a)'s fused run, to its first eval
+        peng, psampler, pev = bilevel_engine(torch, algo, BL_K, dev,
+                                             "per_step")
+        rp, sp, sec = timed_run(torch, peng, psampler(), pev, BL_EVAL,
+                                jtilde=jt[:BL_EVAL + 1])
+        rate[(algo, f"per_step, {BL_EVAL} steps")] = BL_EVAL / sec
+        if not (states_equal(torch, sp, kept[BL_EVAL])
+                and same_curves(rp, res, upto=2)):
+            raise AssertionError(f"[12b] {algo}/dense: fused differs from "
+                                 "per_step")
+        # (b) ring_rolled: two 5-step chunks, fused against per_step
+        half = BL_EVAL // 2
+        out = {}
+        for dispatch in ("per_step", "fused"):
+            e, esampler, eev = bilevel_engine(torch, algo, BL_K, dev,
+                                              dispatch, "ring_rolled")
+            out[dispatch] = e.run(esampler(), eev, steps=BL_EVAL,
+                                  eval_every=half, return_state=True,
+                                  jtilde=jt[:BL_EVAL + 1])
+        (rr, sr), (rf, sf) = out["per_step"], out["fused"]
+        if not (states_equal(torch, sr, sf) and same_curves(rr, rf)
+                and (e.captures, e.replays) == (1, 2)):
+            raise AssertionError(f"[12b] {algo}/ring_rolled: fused differs "
+                                 "from per_step")
+        print(f"[12b] {algo}: fused == per_step bit for bit, dense over "
+              f"{BL_EVAL} steps (one replay), ring_rolled over {BL_EVAL} "
+              f"steps (two replays)")
+        # (c) the card against the port's own CPU run
+        ceng, csampler, cev = bilevel_engine(torch, algo, BL_K, "cpu",
+                                             "per_step")
+        rc, sc = ceng.run(csampler(), cev, steps=BL_EVAL, eval_every=BL_EVAL,
+                          return_state=True, jtilde=jt[:BL_EVAL + 1])
+        loss_err = max(abs(a - b) for a, b in zip(
+            rp.upper_loss + rp.lower_loss, rc.upper_loss + rc.lower_loss))
+        param_err = max(float((sp.x.cpu() - sc.x).abs().max()),
+                        float((sp.y.cpu() - sc.y).abs().max()))
+        print(f"[12c] {algo}: card vs CPU over {BL_EVAL} steps, max |loss "
+              f"diff| {loss_err:.3g} (limit {TOL_BL_LOSS}), max |x, y diff| "
+              f"{param_err:.3g} (limit {TOL_BL_PARAM})")
+        if not (loss_err <= TOL_BL_LOSS and param_err <= TOL_BL_PARAM):
+            raise AssertionError(f"[12c] {algo}: the card departs from the "
+                                 "CPU")
+    print(f"[12b, 12c] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    # (e) fig3's K = 16
+    eng, sampler, ev = bilevel_engine(torch, "mdbo", 2 * BL_K, dev, "fused")
+    res, state, sec = timed_run(torch, eng, sampler(), ev, 2 * BL_EVAL)
+    check_finite_falls(torch, "[12e] K=16", res, state, 2 * BL_K)
+    print(f"[12e] mdbo K=16 fused: upper loss {res.upper_loss[0]:.4f} -> "
+          f"{res.upper_loss[-1]:.4f}, {eng.replays} replays, {sec:.2f} s "
+          "with the capture")
+    # (e) the device sampler through (a)'s MDBO engine and its graph
+    eng, res, _, state, sampler, ev = fig1["mdbo"]
+    dsamp = make_device_sampler(sampler().tr, sampler().va,
+                                batch=BL_BATCH_TOTAL // BL_K, J=BL_J,
+                                device=dev)
+    replays = eng.replays
+    dres, dstate, sec = timed_run(torch, eng, dsamp, ev, BL_FIG1_STEPS)
+    check_finite_falls(torch, "[12e] device sampler", dres, dstate)
+    if (eng.captures, eng.replays - replays) != (1, chunks):
+        raise AssertionError("[12e] the device sampler's run did not reuse "
+                             "the cached graph")
+    rate[("mdbo", f"fused, {BL_FIG1_STEPS} steps, device sampler")] = (
+        BL_FIG1_STEPS / sec)
+    print(f"[12e] mdbo fused, device sampler: upper loss "
+          f"{dres.upper_loss[0]:.4f} -> {dres.upper_loss[-1]:.4f}, steps/s "
+          f"{BL_FIG1_STEPS / sec:.1f} (graph cached)")
+    # the card's busy share over one chunk of each dispatch (mdbo, dense),
+    # its batches and J̃ already on the card
+    smp = sampler()
+    draws = [({k: {f: t.to(dev) for f, t in v.items()}
+               for k, v in smp.sample().items()},
+              torch.from_numpy(jt[i + 1]).to(dev)) for i in range(BL_EVAL)]
+
+    def per_step():
+        s = state
+        for batch, jtilde in draws:
+            s = eng.step(s, batch, jtilde)
+
+    for dispatch, fn in (("per_step", per_step),
+                         ("fused", lambda: eng.run_chunk(state, draws))):
+        busy, wall, n = busy_share(torch, fn)
+        print(f"[12] one {BL_EVAL}-step mdbo chunk, {dispatch}: wall "
+              f"{wall:.2f} ms, card busy {busy:.2f} ms ({busy / wall:.1%}),"
+              f" {n} device records")
+    print(f"[12e, busy] took {time.perf_counter() - t0:.1f} s")
+    print("[12] steps/s on " + card + ": " + json.dumps(
+        {f"{a}/{d}": round(r, 2) for (a, d), r in rate.items()}))
+
+
 def main() -> int:
     import torch
 
@@ -1640,6 +1891,11 @@ def main() -> int:
     profile_drain(torch, s_eng, scfg.vocab, lambda st: ssm_want(scfg, st),
                   tag="[11]")
     lap("[11] profile")
+    del s_eng, sparams
+    torch.cuda.empty_cache()
+
+    check_bilevel(torch, card)
+    lap("[12]")
     print(f"[ ] total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))
