@@ -97,7 +97,19 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    same batches and J̃, within a stated f32 limit; (e) MDBO at K = 16, and
    through the device sampler on (a)'s cached graph. Prints steps/s of
    both dispatches and the card's busy share over one 10-step chunk of
-   each.
+   each;
+13. the decentralized bilevel LM trainer (``repro_torch.train``), which
+   runs no TPU kernel and so adds none, on full-width ``smollm-360m``
+   (random f32 weights from seed 0): (a) ``repro_torch.launch.train.main``
+   at its defaults (MDBO, the ring mix, K = 4, per-node batch 2 x 32
+   tokens, J = 2 randomized) for 10 steps, fused: one CUDA graph capture
+   and two replays, every eval's losses finite; steps/s, tokens/s, the
+   capture's seconds and the peak memory; (b) the same run per_step for 5
+   steps, every state leaf bit for bit equal to the fused run's; (c) each
+   family's reduced config, MDBO and VRDBO, the card against the port's CPU
+   run on the same batches and J̃ within a stated f32 limit, and a reduced
+   CLI run whose checkpoints ``restore`` gives back; (d) the card's busy
+   share over the per_step chunk and one replayed fused chunk.
 
 Prints a ``{"kernels": [...]}`` line naming all five kernels, then the
 card's name and power limit, and as its last line ``{"ok": true,
@@ -114,6 +126,7 @@ import re
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 
@@ -242,6 +255,24 @@ BL_STEPS = 20                     # the dispatch, CPU and K = 16 checks
 # carry without growth. The limits are on the losses and on max |x|, |y|
 # differences, ~1e3 x the f32 unit roundoff at these magnitudes.
 TOL_BL_LOSS, TOL_BL_PARAM = 1e-4, 1e-4
+
+
+# phase 13: the decentralized bilevel LM trainer through its CLI at the CLI's
+# defaults — MDBO on the ring mix, K = 4 nodes, a per-node batch of 2 x 32
+# tokens, J = 2 with randomized truncation, seed 0 — on full-width
+# smollm-360m (random f32 weights, bf16 compute), 10 steps in fused chunks
+# of 5 (one capture, two replays)
+TR_ARCH, TR_K, TR_BATCH, TR_SEQ, TR_STEPS, TR_EVAL = (
+    "smollm-360m", 4, 2, 32, 10, 5)
+TR_ARGV = ["--arch", TR_ARCH, "--steps", str(TR_STEPS), "--eval-every",
+           str(TR_EVAL)]
+# (c): the reduced configs (f32) on the card against the port's CPU run on
+# the same batches and J̃: the same f32 ops summed in other orders, a few
+# ulps a step, which three steps of contracting updates carry without
+# growth; the limit is on the losses and on max |difference| of every state
+# leaf (all O(1) or smaller), as phase 12's
+TR_SMALL_K, TR_SMALL_SEQ, TR_SMALL_STEPS, TOL_TR = 2, 16, 3, 1e-4
+TR_FAMILIES = ("smollm-360m", "recurrentgemma-2b", "rwkv6-1.6b")
 
 
 def card_line() -> str:
@@ -1596,25 +1627,43 @@ def same_curves(a, b, upto=None) -> bool:
         "steps", "upper_loss", "lower_loss", "consensus_x", "consensus_y"))
 
 
-def busy_share(torch, fn):
-    """The card's busy time over one call of ``fn`` under the profiler,
-    and the call's wall time (ms): the spin burst and idle tail frame the
-    window as in the profiled drains."""
-    from torch.profiler import ProfilerActivity, profile
+class BusyWindow:
+    """The card's busy time and the wall time (ms) from ``start()`` to
+    ``stop()`` under the profiler, and the device records in between: the
+    spin burst and idle tail frame the window as in the profiled
+    drains."""
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        spin_burst(torch)
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    def __init__(self, torch):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.torch = torch
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def start(self):
+        self.prof.start()
+        spin_burst(self.torch)
+        self.t0 = time.perf_counter()
+
+    def stop(self):
+        self.torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - self.t0) * 1e3
         time.sleep(TRACE_TAIL_S)
-    recs = [(n, d) for n, d in device_records(torch, prof)
-            if TRACE_SPIN not in n]
-    busy_ms = sum(d for _, d in recs) / 1e6
-    if busy_ms <= 0:
-        raise AssertionError("the profiler recorded no time on the card")
-    return busy_ms, wall_ms, len(recs)
+        self.prof.stop()
+        recs = [(n, d) for n, d in device_records(self.torch, self.prof)
+                if TRACE_SPIN not in n]
+        busy_ms = sum(d for _, d in recs) / 1e6
+        if busy_ms <= 0:
+            raise AssertionError("the profiler recorded no time on the card")
+        return busy_ms, wall_ms, len(recs)
+
+
+def busy_share(torch, fn):
+    """:class:`BusyWindow` over one call of ``fn``: (busy ms, wall ms,
+    device records)."""
+    window = BusyWindow(torch)
+    window.start()
+    fn()
+    return window.stop()
 
 
 def check_bilevel(torch, card):
@@ -1751,6 +1800,215 @@ def check_bilevel(torch, card):
     print(f"[12e, busy] took {time.perf_counter() - t0:.1f} s")
     print("[12] steps/s on " + card + ": " + json.dumps(
         {f"{a}/{d}": round(r, 2) for (a, d), r in rate.items()}))
+
+
+def trainer_inputs(torch, cfg, tc, device, K=TR_K):
+    """What ``repro_torch.launch.train`` builds around its engine from its
+    defaults and ``--seed 0``: the device LM sampler and the eval batch."""
+    from repro_torch.data import make_device_lm_sampler, make_node_batch
+
+    return (make_device_lm_sampler(cfg, tc, K, TR_BATCH, TR_SEQ),
+            make_node_batch(cfg, torch.Generator(device=device).manual_seed(
+                SEED + 17), TR_BATCH, TR_SEQ))
+
+
+def trainer_draws(torch, cfg, tc, device, n):
+    """``n`` steps' (batch, J̃) drawn on the card, for the profiled chunks."""
+    from repro_torch.data import make_lm_step_batch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    return [(make_lm_step_batch(cfg, gen, TR_K, TR_BATCH, TR_SEQ, J=tc.J),
+             torch.randint(0, tc.J, (TR_K,), generator=gen, device=device))
+            for _ in range(n)]
+
+
+def leaves_equal(torch, a, b) -> bool:
+    from torch.utils import _pytree as pytree
+
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(u, v)
+                                      for u, v in zip(la, lb))
+
+
+def check_trainer_small(torch):
+    """Phase 13 (c): each family's reduced config (f32), MDBO and VRDBO,
+    fused on the card (one capture each) against per_step on the CPU, on
+    the same batches (drawn on the CPU) and J̃; then a reduced CLI run with
+    ``--ckpt-dir`` whose checkpoints ``restore`` gives back bit for bit."""
+    import tempfile
+
+    from repro_torch.checkpoint import latest_step, restore
+    from repro_torch.configs import get
+    from repro_torch.core.common import replicate
+    from repro_torch.core.hypergrad import tree_map
+    from repro_torch.data import make_lm_step_batch, make_node_batch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import init_params
+    from repro_torch.train import TrainerConfig, make_trainer_engine, x_dim
+    from torch.utils import _pytree as pytree
+
+    K, steps = TR_SMALL_K, TR_SMALL_STEPS
+    jt = np.random.default_rng(SEED).integers(0, 2, (steps + 1, K))
+    worst = {}
+    for arch in TR_FAMILIES:
+        cfg = get(arch).reduced()
+        gen = torch.Generator().manual_seed(SEED)
+        batches = [make_lm_step_batch(cfg, gen, K, TR_BATCH, TR_SMALL_SEQ,
+                                      J=2) for _ in range(steps + 1)]
+        ev = make_node_batch(cfg, gen, TR_BATCH, TR_SMALL_SEQ)
+        for algo in ("mdbo", "vrdbo"):
+            tc = TrainerConfig(algo=algo, mix="ring")
+            out = {}
+            for device, dispatch in (("cuda", "fused"), ("cpu", "per_step")):
+                _, eng = make_trainer_engine(cfg, tc, K, dispatch=dispatch,
+                                             device=device)
+                it = iter(batches)
+                out[device] = eng.run(lambda g: next(it), ev, steps=steps,
+                                      seed=SEED, eval_every=steps,
+                                      return_state=True, jtilde=jt)
+            (rg, sg), (rc, sc) = out["cuda"], out["cpu"]
+            loss = max(abs(a - b) for a, b in zip(
+                rg.upper_loss + rg.lower_loss, rc.upper_loss + rc.lower_loss))
+            state = max(float((u.cpu() - v).abs().max()) for u, v in zip(
+                pytree.tree_leaves(sg), pytree.tree_leaves(sc)))
+            finite = all(np.isfinite(rg.upper_loss + rg.lower_loss))
+            worst[f"{arch}/{algo}"] = (loss, state)
+            if not (finite and loss <= TOL_TR and state <= TOL_TR):
+                raise AssertionError(f"[13c] {arch}/{algo}: the card departs "
+                                     f"from the CPU: losses {loss:.3g}, "
+                                     f"state {state:.3g} (limit {TOL_TR})")
+    print("[13c] card vs CPU, reduced, " + f"{steps} steps, K {K}, "
+          f"{TR_BATCH} x {TR_SMALL_SEQ} tokens a node (limit "
+          f"{TOL_TR}), max |loss diff|, max |state leaf diff|: " + json.dumps(
+              {k: [float(f"{a:.3g}"), float(f"{b:.3g}")]
+               for k, (a, b) in worst.items()}))
+    # the CLI's checkpoints, restored
+    cfg = get(TR_ARCH).reduced()
+    kept = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_cli.main(["--arch", TR_ARCH, "--reduced", "--steps", "4",
+                        "--eval-every", "2", "--ckpt-dir", tmp],
+                       on_eval=lambda t, s: kept.setdefault(t, tree_map(
+                           lambda a: a.cpu(), {"x": s.x, "y": s.y})))
+        template = {"x": torch.zeros(TR_K, x_dim(cfg), device="cuda"),
+                    "y": replicate(init_params(
+                        cfg, torch.Generator().manual_seed(SEED),
+                        device="cuda"), TR_K)}
+        if latest_step(tmp) != 4 or not all(
+                leaves_equal(torch, tree_map(lambda a: a.cpu(),
+                                             restore(tmp, t, template)),
+                             kept[t]) for t in (2, 4)):
+            raise AssertionError("[13c] restore did not give back the "
+                                 "checkpointed state")
+    print("[13c] the reduced CLI run's checkpoints at steps 2 and 4 restore "
+          "bit for bit")
+
+
+def check_trainer(torch, card):
+    """Phase 13: the decentralized bilevel LM trainer (``repro_torch.train``)
+    on full-width ``smollm-360m``, which runs no TPU kernel and so adds
+    none.
+
+    (b) the CLI's run as per_step dispatch, 5 steps, through
+    ``make_trainer_engine``, the card's busy share over those 5 steps (and
+    the eval that ends them) under the profiler; (a) the CLI's own run,
+    ``repro_torch.launch.train.main``, fused: one capture, two replays,
+    every eval's losses finite; (b) its state after 5 steps against the
+    per_step one, every leaf bit for bit, and the evals at steps 0 and 5
+    equal; (d) the busy share over one replayed 5-step chunk; (c)
+    :func:`check_trainer_small`."""
+    from repro_torch.configs import get
+    from repro_torch.core.hypergrad import tree_map
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import TrainerConfig, make_trainer_engine
+
+    dev = torch.device("cuda")
+    cfg = get(TR_ARCH).config
+    tc = TrainerConfig(mix="ring")     # the CLI's algorithm, J and steps
+    to_cpu = partial(tree_map, lambda a: a.cpu())
+    gb = 1e-9
+    summary = {"card": card}
+
+    # (b) per_step, and its busy share over steps 1-5
+    t_part = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _, peng = make_trainer_engine(cfg, tc, TR_K, dispatch="per_step",
+                                  device=dev)
+    window = BusyWindow(torch)
+    kept = {}
+
+    def per_step_eval(t, state):
+        if t == 0:
+            window.start()
+        else:
+            kept["busy"] = window.stop()
+            kept["state"] = to_cpu(state)
+
+    pres = peng.run(*trainer_inputs(torch, cfg, tc, dev), steps=TR_EVAL,
+                    seed=SEED, eval_every=TR_EVAL, on_eval=per_step_eval)
+    busy, wall, n = kept["busy"]
+    summary["per_step"] = {
+        "steps_per_s": round(TR_EVAL / (wall / 1e3), 3),
+        "busy_share": round(busy / wall, 4), "busy_ms": round(busy, 1),
+        "wall_ms": round(wall, 1), "device_records_per_step": n // TR_EVAL,
+        "peak_gb": round(torch.cuda.max_memory_allocated() * gb, 2)}
+    print(f"[13b] per_step: {TR_EVAL} steps in {wall:.0f} ms under the "
+          f"profiler, card busy {busy:.0f} ms ({busy / wall:.1%}), "
+          f"{n // TR_EVAL} device records a step; "
+          f"{time.perf_counter() - t_part:.1f} s", flush=True)
+    del peng
+    torch.cuda.empty_cache()
+    t_part = time.perf_counter()
+
+    # (a) the CLI, fused
+    torch.cuda.reset_peak_memory_stats()
+    hook = {"s": 0.0}
+
+    def fused_eval(t, state):
+        if t == TR_EVAL:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kept["fused"] = to_cpu(state)
+            hook["s"] += time.perf_counter() - t0
+        elif t == TR_STEPS:
+            kept["live"] = state
+
+    res, eng = train_cli.main(TR_ARGV, on_eval=fused_eval)
+    torch.cuda.synchronize()
+    curves = res.upper_loss + res.lower_loss
+    if not (all(np.isfinite(curves)) and res.steps == [0, TR_EVAL, TR_STEPS]
+            and (eng.captures, eng.replays) == (1, 2)):
+        raise AssertionError(f"[13a] {res.steps}, losses {curves}, "
+                             f"{eng.captures} captures, {eng.replays} replays")
+    wall = res.wall_time_s - hook["s"]
+    summary["fused_cli"] = {
+        "steps_per_s": round(TR_STEPS / wall, 3),
+        "tokens_per_s": round(TR_K * TR_BATCH * TR_SEQ * TR_STEPS / wall, 1),
+        "wall_s": round(wall, 2), "capture_s": round(eng.capture_s, 2),
+        "peak_gb": round(torch.cuda.max_memory_allocated() * gb, 2),
+        "val_loss": [round(v, 4) for v in res.upper_loss]}
+    # (b) fused == per_step
+    if not (leaves_equal(torch, kept["fused"], kept["state"])
+            and same_curves(pres, res, upto=2)):
+        raise AssertionError("[13b] fused differs from per_step at full "
+                             "width")
+    print(f"[13b] fused == per_step bit for bit after {TR_EVAL} steps "
+          f"(every state leaf) and at the evals of steps 0 and {TR_EVAL}; "
+          f"the CLI's run {time.perf_counter() - t_part:.1f} s", flush=True)
+    # (d) one replayed chunk
+    draws = trainer_draws(torch, cfg, tc, dev, TR_EVAL)
+    busy, wall, n = busy_share(torch, lambda: eng.run_chunk(kept["live"],
+                                                            draws))
+    summary["fused_replay"] = {
+        "steps_per_s": round(TR_EVAL / (wall / 1e3), 3),
+        "busy_share": round(busy / wall, 4), "busy_ms": round(busy, 1),
+        "wall_ms": round(wall, 1), "device_records_per_step": n // TR_EVAL}
+    print("[13] " + json.dumps(summary), flush=True)
+    del eng, kept
+    torch.cuda.empty_cache()
+    t_part = time.perf_counter()
+    check_trainer_small(torch)
+    print(f"[13c] took {time.perf_counter() - t_part:.1f} s")
 
 
 def main() -> int:
@@ -1896,6 +2154,8 @@ def main() -> int:
 
     check_bilevel(torch, card)
     lap("[12]")
+    check_trainer(torch, card)
+    lap("[13]")
     print(f"[ ] total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -172,7 +172,7 @@ def register_mix_backend(name: str):
 
 @register_mix_backend("dense")
 def _dense_backend(*, weights=None, K: int | None = None,
-                   self_weight: float = 1.0 / 3.0, device="cpu"):
+                   self_weight: float = 1.0 / 3.0, device="cuda"):
     """Paper-faithful contraction with an explicit W (default: ring(K))."""
     if weights is None:
         if K is None:
@@ -183,15 +183,19 @@ def _dense_backend(*, weights=None, K: int | None = None,
 
 @register_mix_backend("ring_rolled")
 def _ring_rolled_backend(*, weights=None, K: int | None = None,
-                         self_weight: float = 1.0 / 3.0, device="cpu"):
-    """W-free ring via torch.roll on the leading node axis."""
+                         self_weight: float = 1.0 / 3.0, device="cuda"):
+    """W-free ring via torch.roll on the leading node axis. It holds no
+    tensor, but resolves ``device`` as every builder does."""
+    resolve_device(device)
     return ring_mix_rolled(self_weight)
 
 
 def make_mix(name: str, **kwargs) -> MixFn:
     """Build a mixing operator from the backend registry.
 
-    kwargs: weights (dense), K (default-ring fallback), self_weight, device.
+    kwargs: weights (dense), K (default-ring fallback), self_weight, device
+    (``"cuda"`` unless the caller names another: without a card the default
+    raises, as every entry point's does).
     """
     if name in NOT_PORTED_MIXES:
         raise NotImplementedError(
@@ -250,31 +254,50 @@ def _layout(tree: Tree):
     return str(spec), tuple((tuple(t.shape), t.dtype) for t in leaves)
 
 
+def _unaliased(tree: Tree) -> Tree:
+    """``tree`` with every leaf its own tensor: a leaf that repeats an
+    earlier one (MDBO's init state holds ``v`` and ``zg`` as one tensor) is
+    cloned, the others are kept."""
+    seen = set()
+
+    def own(t):
+        if id(t) in seen:
+            return t.clone()
+        seen.add(id(t))
+        return t
+
+    return tree_map(own, tree)
+
+
 class ChunkGraph:
     """``n`` steps captured as one CUDA graph over static buffers.
 
-    ``state`` is both the graph's input and its output: the captured chunk
-    ends by copying its last state into it, so each replay advances it by
-    ``n`` steps. ``trace`` holds each step's (consensus_x, consensus_y).
+    ``state`` is both the graph's input and its output: each captured step
+    copies its new state into it, so each replay advances it by ``n``
+    steps, and at most one step's new state is alive beside it. The graph
+    adopts the given state's tensors as that buffer. Both keep the card's
+    memory at what a per-step run needs (66 GB for MDBO on full-width
+    ``smollm-360m`` at K = 4, of which a state is 17). ``trace`` holds each
+    step's (consensus_x, consensus_y).
     """
 
     def __init__(self, chunk: Callable, state: Tree, draws: list):
         clone = partial(tree_map, torch.clone)
-        self.state = clone(state)
+        self.state = _unaliased(state)
         self.batches = [clone(b) for b, _ in draws]
         self.jtildes = [jt.clone() for _, jt in draws]
-        # warm up (one step: the chunk repeats one step's kernels) on a copy
-        # of the state, on a side stream as torch.cuda.graph asks, so the
-        # warm-up advances nothing real
+        # warm up (one step: the chunk repeats one step's kernels) on a side
+        # stream, as torch.cuda.graph asks; a step writes nothing it reads,
+        # so the warm-up advances nothing real
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            chunk(clone(self.state), self.batches[:1], self.jtildes[:1])
+            chunk(self.state, self.batches[:1], self.jtildes[:1])
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
-            out, self.trace = chunk(self.state, self.batches, self.jtildes)
-            _copy_into(self.state, out)
+            _, self.trace = chunk(self.state, self.batches, self.jtildes,
+                                  in_place=True)
 
     def replay(self, state: Tree, draws: list):
         _copy_into(self.state, state)
@@ -334,6 +357,7 @@ class Engine:
         self._step_body = partial(alg.step, problem, cfg, hp, self.mix)
         self._graphs: dict = {}
         self.captures = 0   # CUDA graphs captured
+        self.capture_s = 0.0  # their seconds, warm-up step included
         self.replays = 0    # CUDA graph replays (one per fused chunk)
 
     # -- building blocks ----------------------------------------------------
@@ -356,12 +380,21 @@ class Engine:
             "cy": consensus_error(state.y),
         }
 
-    def _chunk(self, state: Tree, batches: list, jtildes: list):
+    def _chunk(self, state: Tree, batches: list, jtildes: list, *,
+               in_place: bool = False):
         """``len(batches)`` steps and each step's consensus errors,
-        ``[n, 2]``: the body a fused chunk runs (and captures on CUDA)."""
+        ``[n, 2]``: the body a fused chunk runs (and captures on CUDA).
+        ``in_place`` copies each step's new state into ``state``'s tensors
+        (the captured chunk, whose input is its output) and frees it before
+        the next step; the values are the same."""
         trace = []
         for batch, jt in zip(batches, jtildes):
-            state = self.step(state, batch, jt)
+            new = self.step(state, batch, jt)
+            if in_place:
+                _copy_into(state, new)
+                del new
+            else:
+                state = new
             trace.append(torch.stack([consensus_error(state.x),
                                       consensus_error(state.y)]))
         return state, torch.stack(trace)
@@ -371,14 +404,18 @@ class Engine:
         jtilde)`` pair on the engine's device: one CUDA graph replay on the
         card (captured on the first chunk of this length), the plain loop on
         the CPU. Returns ``(state, trace)``; on CUDA both are the graph's
-        static buffers, which the next replay overwrites."""
+        static buffers, which the next replay overwrites. The chunk that
+        captures a graph adopts ``state``'s tensors as those buffers."""
         if self.device.type != "cuda":
             return self._chunk(state, [b for b, _ in draws],
                                [jt for _, jt in draws])
         key = (len(draws), _layout(draws[0][0]), _layout(state))
         graph = self._graphs.get(key)
         if graph is None:
+            t0 = time.perf_counter()
             graph = self._graphs[key] = ChunkGraph(self._chunk, state, draws)
+            torch.cuda.synchronize()
+            self.capture_s += time.perf_counter() - t0
             self.captures += 1
         self.replays += 1
         return graph.replay(state, draws)
@@ -446,6 +483,9 @@ class Engine:
         eval_batch = self._to_device(eval_batch)
 
         state = self.init(X0, Y0, *draw(0))
+        # what the state does not hold goes back to the allocator now: at
+        # full LM width each of X0/Y0 and y0 is gigabytes
+        del x0, y0, X0, Y0
         fused = self.dispatch == "fused"
         rec = self.recorder
         res = RunResult(self.algo, [], [], [], [], [], {})

@@ -13,7 +13,15 @@ All second-order quantities are *matrix-free*:
 
 * Hessian-vector products ``∇²_{yy} g · v`` use forward-over-reverse
   ``torch.func.jvp(torch.func.grad(g), (y,), (v,))``.
-* The cross term ``∇²_{xy} g · v`` is ``∇_x ⟨∇_y g(x, y), v⟩`` (v constant).
+* The cross term ``∇²_{xy} g · v`` is ``∂/∂ε ∇_x g(x, y + εv)``, forward
+  over reverse as well. The JAX package takes it reverse over reverse, as
+  ``∇_x ⟨∇_y g(x, y), v⟩``; the mixed partials are the same. Reverse over
+  reverse, the order in which the second pass summed x's many gradient
+  contributions changed with what the process had run before (on the
+  card, the last bit of an LM's cross term; the first pass's autograd
+  nodes are made on another thread, with other sequence numbers), which
+  broke fused == per_step. One reverse pass sums in a fixed order, and
+  skips the second pass through the model.
 
 The counterpart of ``repro.core.hypergrad``. The truncation level J̃ is an
 integer tensor that the caller draws (the JAX package takes a PRNG key and
@@ -90,13 +98,10 @@ def hvp_yy(g: Callable, x: Params, y: Params, batch: Batch, v: Params) -> Params
 
 
 def jvp_xy(g: Callable, x: Params, y: Params, batch: Batch, v: Params) -> Params:
-    """∇²_{xy} g(x, y; batch) · v  =  ∇_x ⟨∇_y g(x, y; batch), v⟩."""
-    v = tree_map(torch.Tensor.detach, v)
-
-    def inner(xx):
-        gy = torch.func.grad(g, argnums=1)(xx, y, batch)
-        return tree_dot(gy, v)
-    return torch.func.grad(inner)(x)
+    """∇²_{xy} g(x, y; batch) · v  =  ∂/∂ε ∇_x g(x, y + εv; batch)."""
+    def grad_x(yy):
+        return torch.func.grad(g, argnums=0)(x, yy, batch)
+    return torch.func.jvp(grad_x, (y,), (tree_map(torch.Tensor.detach, v),))[1]
 
 
 def draw_jtilde(cfg: HypergradConfig, shape, generator: torch.Generator

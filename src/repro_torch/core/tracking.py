@@ -22,14 +22,16 @@ from typing import Callable
 import torch
 
 from repro_torch.core.hypergrad import tree_add, tree_map, tree_sub
+from repro_torch.device import resolve_device
 
 MixFn = Callable[[object], object]
 
 
-def dense_mix(W, device="cpu") -> MixFn:
+def dense_mix(W, device="cuda") -> MixFn:
     """A ↦ W A (out[i] = Σ_j W[i,j] A[j]) on every pytree leaf, leading
-    axis=K. W is held in f32 on ``device``."""
-    Wt = torch.as_tensor(W, dtype=torch.float32).to(device)
+    axis=K. W is held in f32 on ``device`` (the card unless the caller names
+    the CPU: :func:`repro_torch.device.resolve_device`)."""
+    Wt = torch.as_tensor(W, dtype=torch.float32).to(resolve_device(device))
 
     def mix(tree):
         def leaf(a):

@@ -10,8 +10,9 @@ datasets, splits, shards and :class:`NodeSampler`'s batch stream come from
 ``np.random.default_rng`` exactly as the JAX package's do, so they are equal
 bit for bit; :class:`NodeSampler` returns CPU tensors and the engine moves
 them to its device. :func:`make_device_sampler` draws on the device from a
-``torch.Generator`` instead of ``jax.random``. The LM token streams and
-modality stubs wait on the LM trainer (``ROADMAP.md``, queue 1, item 5).
+``torch.Generator`` instead of ``jax.random``, and so does :func:`lm_batch`,
+the LM token stream. The modality stubs (``audio_stub``, ``vision_stub``)
+wait on the vlm and audio families (``ROADMAP.md``, queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -165,3 +166,24 @@ def make_device_sampler(train_nodes: list[Dataset], val_nodes: list[Dataset],
                 "h": draw(gen, tr_a, tr_b, (K, J, batch))}
 
     return DeviceSampler(sample)
+
+
+# ---------------------------------------------------------------------------
+# LM token streams
+# ---------------------------------------------------------------------------
+
+def lm_batch(generator: torch.Generator, vocab: int, batch: int, seq: int, *,
+             zipf_a: float = 1.2):
+    """Zipf-ish token stream, drawn on the generator's device: a
+    heavy-tailed marginal by an exponential race (ranks clipped to the
+    vocabulary), each row shifted by its own draw from {0..6}. Returns
+    ``{'tokens', 'labels'}``, int64 ``[batch, seq]``, the labels the tokens
+    shifted by one. The JAX package draws the same distribution from
+    ``jax.random``; the streams differ."""
+    dev = generator.device
+    u = torch.empty((batch, seq + 1), device=dev).exponential_(
+        generator=generator)
+    ranks = torch.clamp((u * vocab ** (1.0 / zipf_a)) ** zipf_a, 0, vocab - 1)
+    shift = torch.randint(0, 7, (batch, 1), generator=generator, device=dev)
+    toks = (ranks.long() + shift) % vocab
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -11,7 +11,9 @@ The counterpart of ``repro.models.rglru``, cast for cast. The prefill path
 runs its recurrence through ``scan`` — by default
 :func:`repro_torch.kernels.ops.rglru`, the CUDA kernel on the card and the
 plain version on the CPU; decode is one recurrence step with a rolling conv
-window.
+window. The training forward passes :func:`scan_steps`, the JAX model's own
+step-by-step recurrence, which every ``torch.func`` transform can
+differentiate (the kernel has no derivative in either package).
 """
 from __future__ import annotations
 
@@ -70,13 +72,25 @@ def causal_conv1d(p, x, dtype):
     return out + p["conv_b"].to(dtype)
 
 
+def scan_steps(a, x):
+    """``h_t = a_t ⊙ h_{t−1} + x_t`` from h₀ = 0, one step at a time in the
+    inputs' dtype: the JAX model's ``lax.scan`` (``recurrent_block``'s
+    ``step``). a/x: [B, S, R] -> hs [B, S, R]."""
+    h = torch.zeros_like(x[:, 0])
+    hs = []
+    for t in range(x.shape[1]):
+        h = a[:, t] * h + x[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
 def recurrent_block(cfg, p, x, *, scan=ops.rglru):
     """Train/prefill. x: [B, S, D] -> (y [B, S, D], final state [B, R]).
 
     ``scan(a, x)`` runs the recurrence from a zero state:
     :func:`repro_torch.kernels.ops.rglru` unless the caller passes another
-    (``chip_smoke.py`` replays the model through the plain version on the
-    card)."""
+    (the training forward passes :func:`scan_steps`; ``chip_smoke.py``
+    replays the model through the plain version on the card)."""
     dt = cfg.dtype
     gate = gelu(x @ p["w_in_g"].to(dt))
     u = x @ p["w_in_x"].to(dt)

@@ -12,7 +12,9 @@ carried in f32. Decode keeps O(1) state (no KV cache): the two token
 shifts and S. Every call of :func:`time_mix`, a prefill over the prompt or
 one decode step, runs the recurrence through ``wkv`` — by default
 :func:`repro_torch.kernels.ops.wkv6`, the CUDA kernel on the card and the
-plain version on the CPU.
+plain version on the CPU. The training forward passes :func:`wkv_scan`, the
+JAX model's own ``_wkv_scan``, which every ``torch.func`` transform can
+differentiate (the kernel has no derivative in either package).
 """
 from __future__ import annotations
 
@@ -81,6 +83,26 @@ def _heads(cfg, t):
     B, S, D = t.shape
     H = cfg.n_heads
     return t.reshape(B, S, H, D // H)
+
+
+def wkv_scan(r, k, v, w, u, s0=None):
+    """The JAX model's sequential WKV recurrence (``_wkv_scan``), in f32.
+    r/k/v [B, S, H, Dh] (widened to f32 here, as the JAX model widens them);
+    w [B, S, H, Dh] f32 decay; u [H, Dh] f32 bonus; s0 [B, H, Dh, Dh] f32 or
+    None (zeros). Returns (y [B, S, H, Dh] in r's dtype, S_T) — the contract
+    of ``time_mix``'s ``wkv``."""
+    dt = r.dtype
+    r, k, v = r.float(), k.float(), v.float()
+    B, S, H, Dh = r.shape
+    state = (torch.zeros((B, H, Dh, Dh), dtype=torch.float32,
+                         device=r.device) if s0 is None else s0)
+    ys = []
+    for t in range(S):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]       # [B, H, Dh, Dh]
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                               state + u[None, :, :, None] * kv))
+        state = w[:, t, :, :, None] * state + kv
+    return torch.stack(ys, dim=1).to(dt), state
 
 
 def time_mix(cfg, p, x, state=None, *, wkv=ops.wkv6):

@@ -1,11 +1,15 @@
-"""The decoder: parameter init, prefill and the decode cache, for the dense,
-hybrid (RecurrentGemma) and ssm (RWKV-6) families.
+"""The decoder: parameter init, the training forward and loss, prefill and
+the decode cache, for the dense, hybrid (RecurrentGemma) and ssm (RWKV-6)
+families.
 
 * ``init_params(cfg, generator, device=)`` — dict tree with layer-stacked
   weights (the JAX package's tree, leaf for leaf): ``layers`` ``[L, ...]``
   for dense and ssm; ``blocks`` (one entry per position of the block
   pattern, stacked over ``n_layers // len(pattern)`` blocks) and the list
   ``rem`` of trailing layers for hybrid;
+* ``forward(cfg, params, tokens)`` and ``loss_fn(cfg, params, batch)`` —
+  the full-sequence training path: logits (or the final hidden states) and
+  the next-token cross-entropy, taken chunk by chunk (:func:`chunked_ce`);
 * ``prefill(cfg, params, tokens, capacity)`` — full-prompt forward that also
   materializes the decode cache;
 * ``init_cache(cfg, batch, capacity, device=)`` — an empty cache;
@@ -18,19 +22,36 @@ prefill RG-LRU recurrence and every WKV recurrence (prefill and decode) go
 through :mod:`repro_torch.kernels.ops`: the CUDA kernels on the card, their
 plain versions on the CPU. Other families raise ``NotImplementedError``
 (``ROADMAP.md``).
+
+The training path launches none of those kernels, by the JAX package's own
+design and not as a fallback: its ``forward`` attends through the einsum
+``sdpa``, runs the RG-LRU as a ``lax.scan`` and WKV as ``_wkv_scan``, and
+reaches no ``pallas_call``; and neither package has a derivative for the
+kernels, which are forward-only. So :func:`forward` attends through
+:func:`~repro_torch.models.attention.self_attention` and passes the model
+modules' own recurrences (:func:`repro_torch.models.rglru.scan_steps`,
+:func:`repro_torch.models.rwkv6.wkv_scan`), which ``torch.func.grad``,
+``jvp`` and ``vmap`` all go through, as the bilevel trainer's
+Hessian-vector products need. It reads the ``param_dtype`` leaves and casts
+each weight at use, as the JAX model does, so the gradients reach the
+parameters themselves (:func:`compute_params` is for serving only). The JAX
+package's ``cfg.remat`` (``jax.checkpoint``) is a memory policy that leaves
+the numbers unchanged; ``torch.utils.checkpoint`` does not compose with the
+``torch.func`` transforms, so the port computes directly.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import rglru, rwkv6
 from repro_torch.models.attention import (decode_self_attention, init_attn,
                                          init_kv_cache, prefill_attention,
-                                         qkv)
+                                         qkv, self_attention)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_norm, dense, embed, init_embed,
                                        init_mlp, make_norm_params, mlp, rope,
@@ -65,6 +86,18 @@ def layer_params(layers: Params, i: int) -> Params:
     if isinstance(layers, dict):
         return {k: layer_params(v, i) for k, v in layers.items()}
     return layers[i]
+
+
+def unstack(layers: Params, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked ``[n, ...]`` tree, by one
+    ``unbind`` per leaf: views, as :func:`layer_params` gives, but the
+    derivative is one ``stack`` per leaf, where indexing layer by layer
+    would scatter each layer's gradient into a zero tensor of the whole
+    stack and sum ``n`` of them."""
+    if isinstance(layers, dict):
+        parts = {k: unstack(v, n) for k, v in layers.items()}
+        return [{k: parts[k][i] for k in layers} for i in range(n)]
+    return list(torch.unbind(layers))
 
 
 def _stack(trees: list) -> Params:
@@ -154,15 +187,111 @@ def hybrid_layers(cfg: ModelConfig, params: Params, cache: Params):
     cache entries are views into ``cache``'s stacked leaves (or ``None``
     when ``cache`` is)."""
     pat, nb, _ = _hybrid_shape(cfg)
+    blocks = {key: unstack(lp, nb) for key, lp in params["blocks"].items()}
     for j in range(nb):
         for i, kind in enumerate(pat):
             key = f"l{i}_{kind}"
-            yield (kind, layer_params(params["blocks"][key], j),
+            yield (kind, blocks[key][j],
                    None if cache is None
                    else layer_params(cache["blocks"][key], j))
     for i, lp in enumerate(params["rem"]):
         yield (pat[i % len(pat)], lp,
                None if cache is None else cache["rem"][i])
+
+
+def param_count(params: Params) -> int:
+    return sum(t.numel() for t in pytree.tree_leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# Training forward: the full sequence, the JAX model's arithmetic
+# ---------------------------------------------------------------------------
+
+def _embed_rows(cfg, p, tokens):
+    """The training path's embedding lookup: the table's rows for
+    ``tokens``, as :func:`~repro_torch.models.layers.embed` gives them, by a
+    one-hot product. Indexing's derivative scatter-adds each token's
+    gradient into its row, in an order that is not fixed: under ``vmap``
+    two CPU runs summed repeated tokens differently. The product sums them
+    in a fixed order on every device, which keeps fused and per-step runs
+    equal bit for bit. The rows themselves are exact: one product of 1 with
+    the entry, the rest zeros (f32 matmuls without TF32, PyTorch's
+    default)."""
+    table = p["table"]
+    vocab = torch.arange(table.shape[0], device=tokens.device)
+    onehot = (tokens[..., None] == vocab).to(table.dtype)
+    return (onehot @ table).to(cfg.dtype)
+
+
+def _attn_layer(cfg, p, x, positions, *, window):
+    h = x + self_attention(cfg, p["attn"], apply_norm(cfg, p["norm1"], x),
+                           positions, causal=True, window=window)
+    return h + mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], h))
+
+
+def _rec_layer(cfg, p, x):
+    y, _ = rglru.recurrent_block(cfg, p["rec"],
+                                 apply_norm(cfg, p["norm1"], x),
+                                 scan=rglru.scan_steps)
+    h = x + y
+    return h + mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], h))
+
+
+def forward(cfg: ModelConfig, params: Params, tokens, *,
+            return_hidden: bool = False):
+    """tokens [B, S] -> (logits [B, S, V], aux dict); with
+    ``return_hidden=True`` the final-norm'd hidden states [B, S, D] instead
+    of the logits (what :func:`chunked_ce` reads). ``aux`` stays empty: it
+    holds the MoE family's losses, which the port does not run yet."""
+    require_ported(cfg)
+    x = _embed_rows(cfg, params["embed"], tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    if cfg.family == "ssm":
+        for lp in unstack(params["layers"], cfg.n_layers):
+            x, _ = _rwkv_layer(cfg, lp, x, wkv=rwkv6.wkv_scan)
+    elif cfg.family == "hybrid":
+        for kind, lp, _ in hybrid_layers(cfg, params, None):
+            x = (_rec_layer(cfg, lp, x) if kind == "rec" else
+                 _attn_layer(cfg, lp, x, positions, window=cfg.local_window))
+    else:
+        for lp in unstack(params["layers"], cfg.n_layers):
+            x = _attn_layer(cfg, lp, x, positions, window=cfg.window)
+    x = apply_norm(cfg, params["final_norm"], x)
+    if return_hidden:
+        return x, {}
+    return unembed(cfg, params["embed"], x), {}
+
+
+def _hidden_states(cfg: ModelConfig, params: Params, batch):
+    """Final-norm'd hidden states: :func:`forward` without the unembed."""
+    return forward(cfg, params, batch["tokens"], return_hidden=True)
+
+
+def chunked_ce(cfg: ModelConfig, params: Params, x, labels,
+               chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy without the whole ``[B, S, V]``
+    logits: ``chunk`` positions at a time (all S when S is not a multiple
+    of it), each chunk's logits in f32 — the embedding table and the hidden
+    states widened, as the JAX package's ``preferred_element_type`` asks."""
+    B, S, _ = x.shape
+    table = params["embed"]["table"].float()
+    chunk = min(chunk, S)
+    if S % chunk:
+        chunk = S
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, S, chunk):
+        logits = x[:, c:c + chunk].float() @ table.T
+        tgt = torch.gather(logits, -1, labels[:, c:c + chunk, None].long())
+        total = total + torch.sum(torch.logsumexp(logits, dim=-1)
+                                  - tgt[..., 0])
+    return total / (B * S)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
+    """Next-token cross-entropy of ``batch`` (``{'tokens', 'labels'}``,
+    each ``[B, S]``), chunked (:func:`chunked_ce`)."""
+    x, _ = _hidden_states(cfg, params, batch)
+    return chunked_ce(cfg, params, x, batch["labels"])
 
 
 # ---------------------------------------------------------------------------

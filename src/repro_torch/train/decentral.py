@@ -1,0 +1,132 @@
+"""Decentralized bilevel LM training — thin adapters over the Engine.
+
+Maps a :class:`TrainerConfig` and a :class:`ModelConfig` onto
+:class:`repro_torch.core.engine.Engine` (:func:`make_trainer_engine`); the
+Engine's per-step or CUDA-graph-fused dispatch, mix backends and seeded
+generators drive the run (``repro_torch.launch.train`` is a plain
+``Engine.run`` caller). K nodes, each holding its own (x, θ) copy, are a
+leading node axis on one device: the JAX package's ``dp`` placement without
+a mesh.
+
+The counterpart of ``repro.train.decentral``. Not ported yet: the mesh
+placements (``mesh=``, :func:`n_nodes`, :func:`node_axis_name`; ``fsdp_gt``)
+and the dry-run helpers (:func:`step_batch_specs`, :func:`node_keys_spec`,
+:func:`state_shape`) raise ``NotImplementedError`` (``ROADMAP.md``, queue 1,
+items 6 and 8).
+
+Algorithms come from the Engine registry: 'mdbo' (Alg. 1), 'vrdbo' (Alg. 2)
+and 'gt_sgd' — single-level gradient-tracking SGD ablation.
+"""
+from __future__ import annotations
+
+import dataclasses
+from functools import partial
+
+import torch
+
+from repro_torch.core.common import HParams
+from repro_torch.core.engine import ALGORITHMS, Engine
+from repro_torch.core.engine import make_mix as make_engine_mix
+from repro_torch.core.hypergrad import HypergradConfig
+from repro_torch.data.lm import (lm_batch_extras, make_lm_step_batch,
+                                 make_node_batch)
+from repro_torch.models.config import ModelConfig
+from repro_torch.train.bilevel_lm import make_lm_bilevel_problem
+
+__all__ = ["TrainerConfig", "lm_batch_extras", "make_mix", "make_node_batch",
+           "make_problem", "make_step_batch", "make_step_fns",
+           "make_trainer_engine", "n_nodes", "node_axis_name",
+           "node_keys_spec", "state_shape", "step_batch_specs"]
+
+_MESH = ("the trainer's mesh placements (dp and fsdp_gt over a device mesh) "
+         "wait on ROADMAP.md, queue 1, items 6 (ring_local over "
+         "torch.distributed) and 8 (a torch device mesh)")
+_DRY_RUN = ("the dry-run helpers wait on ROADMAP.md, queue 1, item 8 (the "
+            "JAX-specific tooling)")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    algo: str = "mdbo"            # mdbo | vrdbo | gt_sgd
+    J: int = 2                    # Neumann terms at LM scale (logreg uses 10)
+    mix: str = "dense"            # engine mix backend ('ring' = ring_rolled)
+    hp: HParams = dataclasses.field(default_factory=lambda: HParams(
+        eta=0.1, alpha1=1.0, alpha2=1.0, beta1=0.05, beta2=0.5))
+
+
+def n_nodes(spec, mesh) -> int:
+    raise NotImplementedError(f"n_nodes: {_MESH}")
+
+
+def node_axis_name(spec) -> str:
+    raise NotImplementedError(f"node_axis_name: {_MESH}")
+
+
+def _mix_name(tc: TrainerConfig) -> str:
+    """'ring' is kept as an alias of the registry's 'ring_rolled' backend."""
+    return {"ring": "ring_rolled"}.get(tc.mix, tc.mix)
+
+
+def make_mix(tc: TrainerConfig, K: int, *, device="cuda"):
+    """Resolve tc.mix through the engine's mix-backend registry on
+    ``device``. 'dense' builds the ring-W contraction (the paper-faithful
+    default); K=1 degenerates to the identity."""
+    if K == 1:
+        return lambda tree: tree
+    return make_engine_mix(_mix_name(tc), K=K, device=device)
+
+
+def make_problem(model_cfg: ModelConfig, tc: TrainerConfig):
+    """(BilevelProblem, HypergradConfig) for the LM regularization problem."""
+    problem = make_lm_bilevel_problem(model_cfg)
+    hcfg = HypergradConfig(J=tc.J, lip_gy=problem.lip_gy, randomize=True)
+    return problem, hcfg
+
+
+def make_trainer_engine(model_cfg: ModelConfig, tc: TrainerConfig, K: int, *,
+                        mesh=None, dispatch: str = "fused",
+                        mix: str | None = None, recorder=None,
+                        device="cuda"):
+    """Build the Engine that runs the decentralized LM trainer on
+    ``device``: ``(problem, engine)``. ``mix`` overrides ``tc.mix`` (a
+    registry name). ``mesh`` is not ported."""
+    if mesh is not None:
+        raise NotImplementedError(f"make_trainer_engine(mesh=): {_MESH}")
+    problem, hcfg = make_problem(model_cfg, tc)
+    eng = Engine(problem, hcfg, tc.hp, K, algo=tc.algo,
+                 mix=mix or _mix_name(tc), dispatch=dispatch,
+                 recorder=recorder, device=device)
+    return problem, eng
+
+
+def make_step_fns(model_cfg: ModelConfig, tc: TrainerConfig):
+    """(problem, init_fn, step_fn) over node-stacked state, pulled from the
+    Engine's algorithm registry; both take the mix first:
+    ``init_fn(mix, X0, Y0, batch, jtilde)``, ``step_fn(mix, state, batch,
+    jtilde)``."""
+    problem, hcfg = make_problem(model_cfg, tc)
+    if tc.algo not in ALGORITHMS:
+        raise ValueError(tc.algo)
+    alg = ALGORITHMS[tc.algo]
+    init = partial(alg.init, problem, hcfg, tc.hp)
+    step = partial(alg.step, problem, hcfg, tc.hp)
+    return problem, init, step
+
+
+def make_step_batch(cfg: ModelConfig, tc: TrainerConfig,
+                    generator: torch.Generator, K: int, per_node: int,
+                    seq: int):
+    """{'f','g','h'} with node axis K — see data.make_lm_step_batch."""
+    return make_lm_step_batch(cfg, generator, K, per_node, seq, J=tc.J)
+
+
+def step_batch_specs(cfg, tc, K, per_node, seq):
+    raise NotImplementedError(f"step_batch_specs: {_DRY_RUN}")
+
+
+def node_keys_spec(K):
+    raise NotImplementedError(f"node_keys_spec: {_DRY_RUN}")
+
+
+def state_shape(cfg, tc, K):
+    raise NotImplementedError(f"state_shape: {_DRY_RUN}")

@@ -60,7 +60,7 @@ def run(algo, mix, dispatch, device, steps=13, sampler=None, engine=None):
 @pytest.mark.parametrize("algo", ALGOS)
 def test_fused_graph_replays_equal_per_step_bitwise(cuda_device, algo, mix):
     """13 steps: a graph of 5 steps replayed twice, and one of 3 for the
-    tail, each captured once (warmed up on a copy of the state)."""
+    tail, each captured once (warmed up on one step)."""
     _, rp, sp = run(algo, mix, "per_step", cuda_device)
     eng, rf, sf = run(algo, mix, "fused", cuda_device)
     assert (eng.captures, eng.replays) == (2, 3)

@@ -26,6 +26,7 @@ import repro_torch.core.hypergrad as phg  # noqa: E402
 import repro_torch.core.problems as pprob  # noqa: E402
 import repro_torch.core.topology as ptopo  # noqa: E402
 import repro_torch.data.synthetic as pdata  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 TOL = 2e-6
 K, D, C, B, J = 4, 12, 3, 8, 4

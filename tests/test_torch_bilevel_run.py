@@ -39,6 +39,7 @@ from repro.data import synthetic as rdata  # noqa: E402
 from repro_torch.core import Engine, HParams, HypergradConfig  # noqa: E402
 from repro_torch.core import logreg_hyperopt, ring  # noqa: E402
 from repro_torch.data import synthetic as pdata  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 K, D, J, B, STEPS, EVAL, SEED = 4, 16, 4, 8, 20, 5, 0
 ALGOS = ("mdbo", "vrdbo", "dsbo", "gdsbo", "gt_sgd")
@@ -171,11 +172,12 @@ def test_mixes_match_reference_and_ring_rolled_equals_dense(K_):
 
     t = tree(K_)
     for W in (ptopo.ring(K_).weights, ptopo.erdos_renyi(K_, 0.6, 1).weights):
-        close(ptrack.dense_mix(W)(to_t(t)), rtrack.dense_mix(W)(t))
+        close(ptrack.dense_mix(W, "cpu")(to_t(t)), rtrack.dense_mix(W)(t))
     for sw in (1.0 / 3.0, 0.5):
         rolled = ptrack.ring_mix_rolled(sw)(to_t(t))
         close(rolled, rtrack.ring_mix_rolled(sw)(t))
-        close(rolled, ptrack.dense_mix(ptopo.ring(K_, sw).weights)(to_t(t)))
+        close(rolled, ptrack.dense_mix(ptopo.ring(K_, sw).weights, "cpu")(
+            to_t(t)))
 
 
 @pytest.mark.parametrize("mix", ["dense", "ring_rolled"])
@@ -183,7 +185,7 @@ def test_tracking_invariant_and_updates_match(mix):
     """mean_k Z_t = mean_k U_t after every tracking update (Eq. 8), and
     track/param/gossip updates match the reference's."""
     Kn = 5
-    pmix = (ptrack.dense_mix(ring(Kn).weights) if mix == "dense"
+    pmix = (ptrack.dense_mix(ring(Kn).weights, "cpu") if mix == "dense"
             else ptrack.ring_mix_rolled())
     rmix = (rtrack.dense_mix(rring(Kn).weights) if mix == "dense"
             else rtrack.ring_mix_rolled())
