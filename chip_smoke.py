@@ -109,7 +109,25 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    family's reduced config, MDBO and VRDBO, the card against the port's CPU
    run on the same batches and J̃ within a stated f32 limit, and a reduced
    CLI run whose checkpoints ``restore`` gives back; (d) the card's busy
-   share over the per_step chunk and one replayed fused chunk.
+   share over the per_step chunk and one replayed fused chunk;
+14. compressed and asynchronous gossip (``core/compression.py``,
+   ``core/async_gossip.py``, the Engine's stateful-mix carry,
+   ``repro_torch.obs``), which run no TPU kernel and so add none, on phase
+   12's workload: (a) ``fig_compression.py``'s grid, MDBO at K = 8, 40 steps
+   fused through the device sampler, on the dense mix and on
+   ``compressed_topk`` at 0.25 and 0.05, plain and EF21 (one capture and
+   two replays each): the final loss, consensus and y bytes per round;
+   (b) ``async_bench.py``: ``ring_rolled`` against ``async_gossip`` at
+   τ 3 under the straggler delay model at a 4 ms deadline and at the
+   adaptive 0.90-quantile one, with a live ``Recorder``: the realized
+   staleness histogram beside ``expected_staleness``, simulated time to
+   the worst final loss, steps/s; (c) per_step against fused, bit for bit
+   with every mix slot, for MDBO and VRDBO on EF21 top-k, the EF21 random
+   mask and async gossip, and async τ 0 against ``ring_rolled``; (d) MDBO's
+   card runs against the port's CPU run on the same batches, J̃ and
+   deliveries; (e) a reduced LM config through ``make_trainer_engine`` on
+   EF21 top-k and on async gossip, fused against per_step and the peak
+   memory, and the full-width memory arithmetic from phase 13's numbers.
 
 Prints a ``{"kernels": [...]}`` line naming all five kernels, then the
 card's name and power limit, and as its last line ``{"ok": true,
@@ -273,6 +291,26 @@ TR_ARGV = ["--arch", TR_ARCH, "--steps", str(TR_STEPS), "--eval-every",
 # leaf (all O(1) or smaller), as phase 12's
 TR_SMALL_K, TR_SMALL_SEQ, TR_SMALL_STEPS, TOL_TR = 2, 16, 3, 1e-4
 TR_FAMILIES = ("smollm-360m", "recurrentgemma-2b", "rwkv6-1.6b")
+
+
+# phase 14: compressed and asynchronous gossip on phase 12's workload.
+# (a) fig_compression.py's grid: MDBO, K = 8, 40 steps fused in chunks of
+# 20, through the device sampler, on the dense mix and on compressed_topk at
+# each ratio, plain and EF21
+GS_STEPS, GS_EVAL, GS_RATIOS = 40, 20, (0.25, 0.05)
+# (b) async_bench.py: ring_rolled against async_gossip at tau 3 under the
+# straggler model (2 ms links, 15 % of them Exp(30 ms) late) at a 4 ms
+# deadline and at the 0.90-quantile adaptive one, 60 steps in chunks of 6,
+# each run once to capture and once timed
+AS_STEPS, AS_EVAL, AS_TAU, AS_DEADLINE_S, AS_Q = 60, 6, 3, 4e-3, 0.90
+AS_DELAY = {"base_s": 2e-3, "straggler_prob": 0.15,
+            "straggler_scale_s": 30e-3}
+# (c), (d): per_step against fused and the card against the CPU, 6 steps in
+# chunks of 3, MDBO and VRDBO, the limits of phase 12 (c) (the same f32
+# ops in other orders; top-k's gaps at 123 features are far wider)
+GS_CHECK_STEPS, GS_CHECK_EVAL = 6, 3
+# (e): a reduced LM config through make_trainer_engine, K = 4
+GS_TR_K, GS_TR_STEPS, GS_TR_EVAL = 4, 4, 2
 
 
 def card_line() -> str:
@@ -1584,13 +1622,15 @@ def bilevel_build(K):
     return prob, cfg, sampler, ring(K), sampler().eval_batch()
 
 
-def bilevel_engine(torch, algo, K, device, dispatch, mix="dense"):
+def bilevel_engine(torch, algo, K, device, dispatch, mix="dense",
+                   mix_kwargs=None, recorder=None):
     from repro_torch.core import Engine, HParams
 
     prob, cfg, sampler, topo, eval_batch = bilevel_build(K)
     eta, a1, a2, b1, b2 = BL_HP[algo]
     eng = Engine(prob, cfg, HParams(eta, a1, a2, b1, b2), topo, algo=algo,
-                 mix=mix, dispatch=dispatch, device=device)
+                 mix=mix, dispatch=dispatch, mix_kwargs=mix_kwargs,
+                 recorder=recorder, device=device)
     return eng, sampler, eval_batch
 
 
@@ -1921,6 +1961,7 @@ def check_trainer(torch, card):
     from repro_torch.core.hypergrad import tree_map
     from repro_torch.launch import train as train_cli
     from repro_torch.train import TrainerConfig, make_trainer_engine
+    from torch.utils import _pytree as pytree
 
     dev = torch.device("cuda")
     cfg = get(TR_ARCH).config
@@ -1965,7 +2006,10 @@ def check_trainer(torch, card):
     hook = {"s": 0.0}
 
     def fused_eval(t, state):
-        if t == TR_EVAL:
+        if t == 0:
+            summary["params_per_node"] = sum(
+                a.numel() for a in pytree.tree_leaves(state.y)) // TR_K
+        elif t == TR_EVAL:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             kept["fused"] = to_cpu(state)
@@ -2009,6 +2053,255 @@ def check_trainer(torch, card):
     t_part = time.perf_counter()
     check_trainer_small(torch)
     print(f"[13c] took {time.perf_counter() - t_part:.1f} s")
+    return summary
+
+
+def gossip_backends(drop):
+    """(c)'s backend per mix of the registry: EF21 top-k, EF21 random mask
+    (the contractive form), and async gossip at (b)'s 4 ms drop model."""
+    return {"compressed_topk": {"ratio": 0.25, "error_feedback": True},
+            "compressed_rand": {"ratio": 0.25, "error_feedback": True},
+            "async_gossip": {"tau": AS_TAU, "drop_prob": drop}}
+
+
+def check_compression_grid(torch):
+    """Phase 14 (a): fig_compression.py's grid on the card."""
+    from repro_torch.core.compression import comm_bytes_per_mix
+    from repro_torch.data import make_device_sampler
+
+    dev = torch.device("cuda")
+    rows = []
+    for ratio in (1.0,) + GS_RATIOS:
+        for ef in ((False,) if ratio >= 1.0 else (False, True)):
+            mix, mk = (("dense", None) if ratio >= 1.0 else
+                       ("compressed_topk", {"ratio": ratio,
+                                            "error_feedback": ef}))
+            eng, sampler, ev = bilevel_engine(torch, "mdbo", BL_K, dev,
+                                              "fused", mix, mk)
+            smp = sampler()
+            dsamp = make_device_sampler(smp.tr, smp.va, batch=smp.batch,
+                                        J=BL_J, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, state = eng.run(dsamp, ev, steps=GS_STEPS,
+                                 eval_every=GS_EVAL, return_state=True)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            tag = f"[14a] topk {ratio}{' ef' if ef else ''}"
+            check_finite_falls(torch, tag, res, state)
+            if (eng.captures, eng.replays) != (1, GS_STEPS // GS_EVAL):
+                raise AssertionError(f"{tag}: {eng.captures} captures, "
+                                     f"{eng.replays} replays")
+            nbytes = comm_bytes_per_mix(state.y, ratio,
+                                        W=bilevel_build(BL_K)[3].weights)
+            rows.append({"ratio": ratio, "error_feedback": ef,
+                         "final_loss": res.upper_loss[-1],
+                         "consensus_x": res.consensus_x[-1],
+                         "y_bytes_per_round": nbytes,
+                         "run_s": round(sec, 2)})
+    print(f"[14a] fig_compression, mdbo K={BL_K}, {GS_STEPS} steps fused: "
+          + json.dumps(rows))
+    if not rows[0]["y_bytes_per_round"] > rows[1]["y_bytes_per_round"] > (
+            rows[3]["y_bytes_per_round"]):
+        raise AssertionError("[14a] bytes per round do not fall with the "
+                             "keep ratio")
+
+
+def check_async_bench(torch, card):
+    """Phase 14 (b): async_bench.py on the card, with a live Recorder on
+    the async runs: the realized staleness histogram beside the stationary
+    chain's mean, simulated time to the worst final loss, steps/s."""
+    from repro_torch.core.async_gossip import expected_staleness
+    from repro_torch.core.topology import EdgeDelayModel, ring_edge_drop_probs
+    from repro_torch.data import make_device_sampler
+    from repro_torch.obs import Recorder
+
+    dev = torch.device("cuda")
+    model = EdgeDelayModel(**AS_DELAY)
+    n_edges = 2 * BL_K
+    drop = ring_edge_drop_probs(model, BL_K, AS_DEADLINE_S)
+    adapt_s = model.adaptive_deadline(AS_Q, n_edges=n_edges,
+                                      rng=np.random.default_rng(SEED + 1))
+    drop_adapt = ring_edge_drop_probs(model, BL_K, adapt_s)
+    runs, recs, compute_s = {}, {}, None
+    for name, mix, mk in (("sync", "ring_rolled", None),
+                          ("async", "async_gossip",
+                           {"tau": AS_TAU, "drop_prob": drop}),
+                          ("async_adaptive", "async_gossip",
+                           {"tau": AS_TAU, "drop_prob": drop_adapt})):
+        rec = Recorder() if mix == "async_gossip" else None
+        eng, sampler, ev = bilevel_engine(torch, "mdbo", BL_K, dev, "fused",
+                                          mix, mk, rec)
+        smp = sampler()
+        dsamp = make_device_sampler(smp.tr, smp.va, batch=smp.batch, J=BL_J,
+                                    device=dev)
+        eng.run(dsamp, ev, steps=AS_STEPS, eval_every=AS_EVAL)  # captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run(dsamp, ev, steps=AS_STEPS, eval_every=AS_EVAL)
+        torch.cuda.synchronize()
+        per_step = (time.perf_counter() - t0) / AS_STEPS
+        if eng.captures != 1 or not res.upper_loss[-1] < res.upper_loss[0]:
+            raise AssertionError(f"[14b] {name}: {eng.captures} captures, "
+                                 f"losses {res.upper_loss}")
+        runs[name], recs[name] = res, rec
+        compute_s = per_step if compute_s is None else min(compute_s,
+                                                           per_step)
+        print(f"[14b] {name}: {1 / per_step:.1f} steps/s on {card}, upper "
+              f"loss {res.upper_loss[0]:.4f} -> {res.upper_loss[-1]:.4f}, "
+              f"consensus x {res.consensus_x[-1]:.3g}")
+    rng = np.random.default_rng(SEED)
+    step_s = {"sync": compute_s + model.sync_round_s(rng, n_edges, AS_STEPS),
+              "async": np.full(AS_STEPS, compute_s + AS_DEADLINE_S),
+              "async_adaptive": np.full(AS_STEPS, compute_s + adapt_s)}
+    cum = {k: np.concatenate([[0.0], np.cumsum(v)]) for k, v in step_s.items()}
+    target = max(r.upper_loss[-1] for r in runs.values())
+    to_target = {k: next((float(cum[k][s]) for s, loss in zip(
+        r.steps, r.upper_loss) if loss <= target), float("inf"))
+        for k, r in runs.items()}
+    summary = {"compute_s_per_step": compute_s, "target_loss": target,
+               "sim_time_to_target_s": to_target,
+               "adaptive_deadline_s": adapt_s}
+    for name, p in (("async", drop), ("async_adaptive", drop_adapt)):
+        counts = np.asarray(recs[name].snapshot()["hist_counts"][
+            "train_staleness"])
+        # both runs (capture and timed) realize the same ages: 4 sites x
+        # 2 in-edges x K nodes a step
+        if counts.sum() != 2 * AS_STEPS * 4 * 2 * BL_K:
+            raise AssertionError(f"[14b] {name}: {counts.sum()} ages counted")
+        summary[name] = {
+            "staleness_counts": counts.tolist(),
+            "realized_mean": float((counts * np.arange(counts.size)).sum()
+                                   / counts.sum()),
+            "expected_mean": expected_staleness(AS_TAU, float(p.mean())),
+            "drop_prob_mean": float(p.mean())}
+    print("[14b] async_bench: " + json.dumps(summary))
+
+
+def check_gossip_dispatch(torch, drop):
+    """Phase 14 (c) and (d): per_step against fused, bit for bit with every
+    mix slot, for MDBO and VRDBO on each new backend, and async tau 0
+    against ring_rolled; then MDBO's card runs against the port's CPU run
+    on the same batches, J̃ and deliveries."""
+    from torch.utils import _pytree as pytree
+
+    dev = torch.device("cuda")
+    jt = np.random.default_rng(SEED).integers(0, BL_J,
+                                              (GS_CHECK_STEPS + 1, BL_K))
+
+    def run(algo, mix, mk, device, dispatch):
+        eng, sampler, ev = bilevel_engine(torch, algo, BL_K, device,
+                                          dispatch, mix, mk)
+        res, state = eng.run(sampler(), ev, steps=GS_CHECK_STEPS,
+                             eval_every=GS_CHECK_EVAL, return_state=True,
+                             jtilde=jt)
+        return res, (state, eng.mix_states), eng
+
+    worst = {}
+    for mix, mk in gossip_backends(drop).items():
+        for algo in ("mdbo", "vrdbo"):
+            rp, sp, _ = run(algo, mix, mk, dev, "per_step")
+            rf, sf, eng = run(algo, mix, mk, dev, "fused")
+            if not (leaves_equal(torch, sp, sf) and same_curves(rp, rf)
+                    and (eng.captures, eng.replays) == (1, 2)
+                    and len(sf[1]) == 4):
+                raise AssertionError(f"[14c] {algo}/{mix}: fused differs "
+                                     "from per_step")
+            if algo == "mdbo":
+                rc, sc, _ = run(algo, mix, mk, "cpu", "per_step")
+                loss = max(abs(a - b) for a, b in zip(
+                    rp.upper_loss + rp.lower_loss,
+                    rc.upper_loss + rc.lower_loss))
+                state = max(float((u.cpu().float() - v.float()).abs().max())
+                            for u, v in zip(pytree.tree_leaves(sp),
+                                            pytree.tree_leaves(sc)))
+                worst[mix] = (loss, state)
+                if not (loss <= TOL_BL_LOSS and state <= TOL_BL_PARAM):
+                    raise AssertionError(f"[14d] {mix}: the card departs "
+                                         f"from the CPU: {loss}, {state}")
+    print(f"[14c] per_step == fused bit for bit (state and every mix slot) "
+          f"for mdbo and vrdbo on {', '.join(gossip_backends(drop))} over "
+          f"{GS_CHECK_STEPS} steps (two replays)")
+    for algo in ("mdbo", "vrdbo"):
+        ra, sa, _ = run(algo, "async_gossip",
+                        {"tau": 0, "drop_prob": 0.7}, dev, "fused")
+        rr, sr, _ = run(algo, "ring_rolled", None, dev, "fused")
+        if not (leaves_equal(torch, sa[0], sr[0]) and same_curves(ra, rr)):
+            raise AssertionError(f"[14c] {algo}: async tau 0 differs from "
+                                 "ring_rolled")
+    print("[14c] async_gossip tau 0 == ring_rolled bit for bit (mdbo, vrdbo)")
+    print(f"[14d] mdbo card vs CPU over {GS_CHECK_STEPS} steps, max |loss "
+          f"diff|, max |state or mix slot diff| (limits {TOL_BL_LOSS}, "
+          f"{TOL_BL_PARAM}): " + json.dumps(
+              {k: [float(f"{a:.3g}"), float(f"{b:.3g}")]
+               for k, (a, b) in worst.items()}))
+
+
+def check_gossip_trainer(torch, trainer):
+    """Phase 14 (e): the reduced LM trainer on EF21 top-k and on async
+    gossip through ``make_trainer_engine``, fused against per_step with
+    every mix slot, and the peak memory; then the full-width arithmetic
+    from phase 13's own numbers."""
+    from repro_torch.configs import get
+    from repro_torch.train import TrainerConfig, make_trainer_engine
+
+    dev = torch.device("cuda")
+    cfg = get(TR_ARCH).reduced()
+    tc = TrainerConfig(mix="ring")
+    peaks = {}
+    for mix, mk in (("compressed_topk", {"ratio": 0.25,
+                                         "error_feedback": True}),
+                    ("async_gossip", {"tau": 2, "drop_prob": 0.3})):
+        out = {}
+        for dispatch in ("per_step", "fused"):
+            torch.cuda.reset_peak_memory_stats()
+            _, eng = make_trainer_engine(cfg, tc, GS_TR_K, dispatch=dispatch,
+                                         mix=mix, mix_kwargs=mk, device=dev)
+            res, state = eng.run(*trainer_inputs(torch, cfg, tc, dev,
+                                                 GS_TR_K),
+                                 steps=GS_TR_STEPS, seed=SEED,
+                                 eval_every=GS_TR_EVAL, return_state=True)
+            out[dispatch] = (res, (state, eng.mix_states))
+            peaks[f"{mix}/{dispatch}"] = round(
+                torch.cuda.max_memory_allocated() / 1e9, 3)
+        (rp, sp), (rf, sf) = out["per_step"], out["fused"]
+        if not (leaves_equal(torch, sp, sf) and same_curves(rp, rf)
+                and all(np.isfinite(rf.upper_loss))):
+            raise AssertionError(f"[14e] {mix}: fused differs from per_step")
+    print(f"[14e] reduced {TR_ARCH}, K {GS_TR_K}, {GS_TR_STEPS} steps: fused "
+          "== per_step bit for bit (state and every mix slot) on EF21 top-k "
+          "and async gossip; peak GB " + json.dumps(peaks))
+    y_gb = trainer["params_per_node"] * 4 * TR_K / 1e9
+    peak = trainer["fused_cli"]["peak_gb"]
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    print(f"[14e] full width, not run: a y-shaped tree is "
+          f"{trainer['params_per_node']:,} x 4 B x {TR_K} nodes = "
+          f"{y_gb:.2f} GB; MDBO mixes two (zg, y) a step. Phase 13's peak "
+          f"{peak} GB plus EF21's accumulator per site, {2 * y_gb:.1f} GB: "
+          f"at least {peak + 2 * y_gb:.1f} GB, before the EF mix's own "
+          f"y-sized temporaries (the innovation, its compression, (W - I) "
+          f"h); plus async gossip's two caches per site, {4 * y_gb:.1f} GB: "
+          f"at least {peak + 4 * y_gb:.1f} GB; the card holds "
+          f"{card_gb:.1f} GB")
+
+
+def check_gossip(torch, card, trainer):
+    """Phase 14: compressed and asynchronous gossip (``core/compression.py``,
+    ``core/async_gossip.py``, the Engine's stateful-mix carry and
+    ``repro_torch.obs``), which runs no TPU kernel and so adds none."""
+    from repro_torch.core.topology import EdgeDelayModel, ring_edge_drop_probs
+
+    for part, fn in (("a", lambda: check_compression_grid(torch)),
+                     ("b", lambda: check_async_bench(torch, card)),
+                     ("c, d", lambda: check_gossip_dispatch(
+                         torch, ring_edge_drop_probs(
+                             EdgeDelayModel(**AS_DELAY), BL_K,
+                             AS_DEADLINE_S))),
+                     ("e", lambda: check_gossip_trainer(torch, trainer))):
+        t0 = time.perf_counter()
+        fn()
+        print(f"[14{part}] took {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
 
 def main() -> int:
@@ -2154,8 +2447,10 @@ def main() -> int:
 
     check_bilevel(torch, card)
     lap("[12]")
-    check_trainer(torch, card)
+    trainer = check_trainer(torch, card)
     lap("[13]")
+    check_gossip(torch, card, trainer)
+    lap("[14]")
     print(f"[ ] total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

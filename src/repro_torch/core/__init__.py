@@ -10,12 +10,14 @@ Public surface:
     behind driver.run (per-step or CUDA-graph-fused dispatch)
   mdbo / vrdbo / baselines step functions
   tracking.{dense_mix,ring_mix_rolled}
+  compression.{topk_sparsify,random_sparsify,compressed_mix,ErrorFeedbackMix}
+  async_gossip.{AsyncGossipMix,expected_staleness}
 
-Not ported yet (``ROADMAP.md``, queue 1): ``compression``,
-``async_gossip``, ``distributed`` and ``ring_mix_local``.
+Not ported yet (``ROADMAP.md``, queue 1, item 6): ``distributed``,
+``ring_mix_local`` and ``ring_wmi_local``.
 """
-from repro_torch.core import (baselines, engine, mdbo, topology, tracking,
-                              vrdbo)
+from repro_torch.core import (async_gossip, baselines, compression, engine,
+                              mdbo, topology, tracking, vrdbo)
 from repro_torch.core.common import (HParams, consensus_error, node_mean,
                                      replicate)
 from repro_torch.core.driver import ALGOS, run
@@ -32,7 +34,7 @@ from repro_torch.core.tracking import dense_mix, ring_mix_rolled
 __all__ = [
     "ALGORITHMS", "ALGOS", "BilevelProblem", "Engine", "HParams",
     "HypergradConfig", "MIX_BACKENDS", "RunResult", "Topology", "accuracy",
-    "baselines", "complete", "consensus_error", "dense_mix", "engine",
+    "async_gossip", "baselines", "complete", "compression", "consensus_error", "dense_mix", "engine",
     "expected_hypergrad", "get", "logreg_hyperopt", "make_mix", "mdbo",
     "node_mean", "quadratic_problem", "replicate", "ring", "ring_mix_rolled",
     "run", "star", "stochastic_hypergrad", "topology", "torus2d", "tracking",

@@ -15,7 +15,8 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 from repro_torch.core.common import HParams, node_grads
-from repro_torch.core.hypergrad import HypergradConfig, tree_map
+from repro_torch.core.estimators import momentum_update
+from repro_torch.core.hypergrad import HypergradConfig
 from repro_torch.core.problems import BilevelProblem
 from repro_torch.core.tracking import MixFn, gossip_param_update
 
@@ -58,8 +59,8 @@ def gdsbo_step(problem: BilevelProblem, cfg: HypergradConfig, hp: HParams,
                mix: MixFn, state: GDSBOState, batch, jtilde) -> GDSBOState:
     df, dg = node_grads(problem, cfg, state.x, state.y, batch, jtilde)
     a1, a2 = hp.alpha1 * hp.eta, hp.alpha2 * hp.eta
-    u_new = tree_map(lambda u, d: (1.0 - a1) * u + a1 * d, state.u, df)
-    v_new = tree_map(lambda v, d: (1.0 - a2) * v + a2 * d, state.v, dg)
+    u_new = momentum_update(state.u, df, a1)
+    v_new = momentum_update(state.v, dg, a2)
     x_new = gossip_param_update(state.x, u_new, hp.beta1 * hp.eta, mix)
     y_new = gossip_param_update(state.y, v_new, hp.beta2 * hp.eta, mix)
     return GDSBOState(x=x_new, y=y_new, u=u_new, v=v_new)

@@ -2,16 +2,19 @@
 
 Both operate on arbitrary pytrees of per-node quantities: pure functions of
 tensors with a leading node axis K. The counterpart of
-``repro.core.estimators``.
+``repro.core.estimators``; coefficients meet a leaf as JAX's weakly typed
+scalars do (:func:`repro_torch.core.hypergrad.weak_scalar`).
 """
 from __future__ import annotations
 
-from repro_torch.core.hypergrad import tree_map
+from repro_torch.core.hypergrad import tree_map, weak_scalar
 
 
 def momentum_update(prev, grad, a: float):
     """U_t = (1 − a) U_{t−1} + a Δ_t    with a = α·η ∈ (0, 1]   (Eq. 7)."""
-    return tree_map(lambda u, d: (1.0 - a) * u + a * d, prev, grad)
+    def leaf(u, d):
+        return weak_scalar(1.0 - a, u) * u + weak_scalar(a, d) * d
+    return tree_map(leaf, prev, grad)
 
 
 def storm_update(prev, grad_now, grad_prev, a: float):
@@ -21,7 +24,8 @@ def storm_update(prev, grad_now, grad_prev, a: float):
     *current* sample (the STORM correction term).
     """
     def leaf(u, d_now, d_prev):
-        return (1.0 - a) * (u + d_now - d_prev) + a * d_now
+        return (weak_scalar(1.0 - a, u) * (u + d_now - d_prev)
+                + weak_scalar(a, d_now) * d_now)
     return tree_map(leaf, prev, grad_now, grad_prev)
 
 

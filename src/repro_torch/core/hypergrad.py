@@ -46,6 +46,20 @@ Params = Any
 Batch = Any
 
 
+@functools.lru_cache(maxsize=256)
+def _rounded(c: float, dtype: torch.dtype) -> float:
+    return torch.tensor(c, dtype=dtype).item()
+
+
+def weak_scalar(c: float, a: torch.Tensor) -> float:
+    """The Python float ``c`` as it meets the tensor ``a`` in the JAX
+    package: JAX types a Python scalar weakly, so beside a bf16 array it is
+    a bf16 constant (1/3 becomes 0.333984375) and each product rounds in
+    bf16; torch keeps the scalar in f32. Rounding ``c`` to ``a``'s dtype
+    first gives the JAX package's numbers; f32 and wider are unchanged."""
+    return _rounded(float(c), a.dtype)
+
+
 def tree_dot(a, b) -> torch.Tensor:
     """Σ over leaves of the f32-accumulated elementwise product."""
     leaves = pytree.tree_leaves(tree_map(

@@ -20,8 +20,8 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 from repro_torch.core.common import HParams, node_grads
-from repro_torch.core.hypergrad import (HypergradConfig, tree_map,
-                                        tree_zeros_like)
+from repro_torch.core.estimators import momentum_update
+from repro_torch.core.hypergrad import HypergradConfig, tree_zeros_like
 from repro_torch.core.problems import BilevelProblem
 from repro_torch.core.tracking import MixFn, param_update, track_update
 
@@ -59,8 +59,8 @@ def step(problem: BilevelProblem, cfg: HypergradConfig, hp: HParams,
     df, dg = node_grads(problem, cfg, state.x, state.y, batch, jtilde)
 
     a1, a2 = hp.alpha1 * hp.eta, hp.alpha2 * hp.eta
-    u_new = tree_map(lambda u, d: (1.0 - a1) * u + a1 * d, state.u, df)
-    v_new = tree_map(lambda v, d: (1.0 - a2) * v + a2 * d, state.v, dg)
+    u_new = momentum_update(state.u, df, a1)
+    v_new = momentum_update(state.v, dg, a2)
 
     zf_new = track_update(state.zf, u_new, state.u, mix)
     zg_new = track_update(state.zg, v_new, state.v, mix)

@@ -14,8 +14,10 @@ package's format. Weights are random, drawn from ``--seed``.
   python -m repro_torch.launch.train --arch rwkv6-1.6b --reduced \\
       --device cpu --algo vrdbo
 
-The JAX CLI's ``--metrics``, ``--trace-dir`` and ``--jax-profile`` wait on
-the port's observability (``ROADMAP.md``, queue 1, item 7).
+``--metrics DIR`` writes ``metrics.jsonl`` and ``metrics.prom`` into DIR
+and ``--trace-dir DIR`` a Perfetto-loadable ``trace.json``, as the JAX CLI
+does (``repro_torch.obs.cli_recorder``). The JAX CLI's ``--jax-profile``
+has no counterpart (``ROADMAP.md``, queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from repro_torch.core.common import HParams
 from repro_torch.data import make_device_lm_sampler, make_node_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import param_count
+from repro_torch.obs import cli_recorder
 from repro_torch.train import TrainerConfig, make_trainer_engine
 
 
@@ -59,6 +62,10 @@ def main(argv: list[str] | None = None, on_eval=None):
     ap.add_argument("--beta2", type=float, default=0.5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--metrics", default=None, metavar="DIR",
+                    help="write metrics.jsonl + metrics.prom into DIR")
+    ap.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="write a Perfetto-loadable trace.json into DIR")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -69,8 +76,9 @@ def main(argv: list[str] | None = None, on_eval=None):
                        hp=HParams(eta=args.eta, beta1=args.beta1,
                                   beta2=args.beta2))
     K = args.nodes
+    recorder, finalize_obs = cli_recorder(args.metrics, args.trace_dir)
     _, eng = make_trainer_engine(cfg, tc, K, dispatch=args.dispatch,
-                                 device=device)
+                                 recorder=recorder, device=device)
     sampler = make_device_lm_sampler(cfg, tc, K, args.batch, args.seq)
     eval_batch = make_node_batch(
         cfg, torch.Generator(device=device).manual_seed(args.seed + 17),
@@ -94,6 +102,8 @@ def main(argv: list[str] | None = None, on_eval=None):
               f"consensus_x={row['consensus_x']:.2e}", flush=True)
     print(f"wall={res.wall_time_s:.1f}s "
           f"({args.steps / max(res.wall_time_s, 1e-9):.2f} steps/s)")
+    for p in finalize_obs():
+        print("obs:", p)
     if args.ckpt_dir:
         print("checkpoints in", args.ckpt_dir)
     return res, eng

@@ -85,17 +85,21 @@ def make_problem(model_cfg: ModelConfig, tc: TrainerConfig):
 
 def make_trainer_engine(model_cfg: ModelConfig, tc: TrainerConfig, K: int, *,
                         mesh=None, dispatch: str = "fused",
-                        mix: str | None = None, recorder=None,
+                        mix: str | None = None,
+                        mix_kwargs: dict | None = None, recorder=None,
                         device="cuda"):
     """Build the Engine that runs the decentralized LM trainer on
     ``device``: ``(problem, engine)``. ``mix`` overrides ``tc.mix`` (a
-    registry name). ``mesh`` is not ported."""
+    registry name) and ``mix_kwargs`` are passed to the backend (e.g.
+    ``mix='async_gossip', mix_kwargs={'tau': t, 'drop_prob': p}``, or
+    ``mix='compressed_topk', mix_kwargs={'ratio': r, 'error_feedback':
+    True}``). ``mesh`` is not ported."""
     if mesh is not None:
         raise NotImplementedError(f"make_trainer_engine(mesh=): {_MESH}")
     problem, hcfg = make_problem(model_cfg, tc)
     eng = Engine(problem, hcfg, tc.hp, K, algo=tc.algo,
                  mix=mix or _mix_name(tc), dispatch=dispatch,
-                 recorder=recorder, device=device)
+                 mix_kwargs=mix_kwargs, recorder=recorder, device=device)
     return problem, eng
 
 

@@ -165,13 +165,14 @@ def test_default_init_is_seeded():
 def test_registries_and_not_ported_backends():
     assert set(pengine.ALGORITHMS) == {"mdbo", "vrdbo", "dsbo", "gdsbo",
                                        "gt_sgd"}
-    assert set(pengine.MIX_BACKENDS) == {"dense", "ring_rolled"}
-    for name in ("ring_local", "compressed_topk", "compressed_rand",
-                 "async_gossip"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-            pengine.make_mix(name, K=4)
-        with pytest.raises(NotImplementedError):
-            port_engine("mdbo", name)
+    assert set(pengine.MIX_BACKENDS) == {"dense", "ring_rolled",
+                                         "compressed_topk", "compressed_rand",
+                                         "async_gossip"}
+    assert pengine.NOT_PORTED_MIXES == ("ring_local",)
+    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+        pengine.make_mix("ring_local", K=4)
+    with pytest.raises(NotImplementedError):
+        port_engine("mdbo", "ring_local")
     with pytest.raises(ValueError, match="unknown mix"):
         pengine.make_mix("nope", K=4)
     with pytest.raises(ValueError, match="dense mix needs"):
@@ -208,7 +209,7 @@ def test_new_modules_pass_the_reference_ast_lint():
 
     files = sorted((ROOT / "src" / "repro_torch" / "core").glob("*.py")) + \
         sorted((ROOT / "src" / "repro_torch" / "data").glob("*.py"))
-    assert len(files) == 15
+    assert len(files) == 17
     for f in files:
         text = f.read_text()
         assert "noqa" not in text

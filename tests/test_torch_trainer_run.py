@@ -364,10 +364,10 @@ def test_not_ported_paths_raise():
     with pytest.raises(NotImplementedError, match="items 6"):
         ptrain.make_trainer_engine(tcfg, tc, K, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
-        ptrain.make_trainer_engine(tcfg, tc, K, mix="async_gossip",
+        ptrain.make_trainer_engine(tcfg, tc, K, mix="ring_local",
                                    device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
-        ptrain.make_mix(ptrain.TrainerConfig(mix="async_gossip"), K,
+        ptrain.make_mix(ptrain.TrainerConfig(mix="ring_local"), K,
                         device="cpu")
     for fn, args in ((ptrain.n_nodes, (None, None)),
                      (ptrain.node_axis_name, (None,)),
