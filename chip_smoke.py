@@ -127,7 +127,33 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    card runs against the port's CPU run on the same batches, J̃ and
    deliveries; (e) a reduced LM config through ``make_trainer_engine`` on
    EF21 top-k and on async gossip, fused against per_step and the peak
-   memory, and the full-width memory arithmetic from phase 13's numbers.
+   memory, and the full-width memory arithmetic from phase 13's numbers;
+15. the dense configs of the eighth slice at their published widths
+   (random bf16 weights from seed 0, one model on the card at a time) and
+   the rest of the serving engine. First the kernels at the shapes these
+   configs hand them, each against its plain version and timed: paged
+   decode at qwen2.5-3b's heads (16 over 2 of 128) and granite-8b's (32
+   over 8), qwen's verify window at k 3, flash attention at the cohort
+   drain's batch-4 prefill, the sliding-window prefill (4 500 tokens,
+   window 4 096) and minicpm-2b's bucketed prefill (36 heads of 64), with
+   the library yardstick. (a) qwen2.5-3b (QKV biases drawn from the seed)
+   on phase 4's generator cut to 8 requests, ``max_new`` 16, 4 slots:
+   the cohort drain (two left-padded cohorts, one flash launch per layer
+   per cohort) replayed teacher-forced through the flash kernel and the
+   plain attention; the paged drain on a pool that forces preemption, on
+   the kernel read path with a live ``Recorder`` (8 finished, 8 TTFT and
+   latency observations, TTFT p50 and max printed beside tokens/s), on
+   the reference read path (no decode kernel) and with pow2 prefill
+   buckets, each stream equal to the kernel drain's or a bf16 near-tie
+   under a plain replay; speculative decoding on a target damped past
+   layer 2 with its first 2 layers as the draft, k 3, at ``rounds`` 1 and
+   the default, against the plain drain of that target; the serving CLI's
+   ``--mode cohort --metrics`` (reduced widths). (d) qwen's ``long_500k``
+   variant in continuous mode at capacity 4 096 on one 4 500-token prompt.
+   (b) granite-8b, a paged kernel drain of 4 requests. (c) minicpm-2b, a
+   continuous drain with prefill buckets. Every drain's launches are
+   checked and its streams replayed teacher-forced; the kernel rows print
+   as one ``[15 rows]`` JSON line.
 
 Prints a ``{"kernels": [...]}`` line naming all five kernels, then the
 card's name and power limit, and as its last line ``{"ok": true,
@@ -312,6 +338,25 @@ GS_CHECK_STEPS, GS_CHECK_EVAL = 6, 3
 # (e): a reduced LM config through make_trainer_engine, K = 4
 GS_TR_K, GS_TR_STEPS, GS_TR_EVAL = 4, 4, 2
 
+# phase 15: the dense configs of the port's eighth slice at their published
+# widths (random bf16 weights from seed 0). qwen2.5-3b serves phase 4's
+# prompt generator cut to 8 requests (two share a 128-token prefix), 16
+# new tokens each, 4 slots, capacity 512, blocks of 16; its QKV biases get
+# QW_BIAS x a normal draw from seed SEED + 15, since the JAX initialiser
+# zeroes them. QW_NUM_BLOCKS is less than the first four prompts and their
+# budgets need, which forces preemption (requests 1 and 3 are never
+# resident together at this pool size, so no prefix is shared).
+QW_ARCH, GR_ARCH, MC_ARCH = "qwen2.5-3b", "granite-8b", "minicpm-2b"
+QW_REQUESTS, QW_MAX_NEW, QW_MAX_BATCH, QW_CAPACITY = 8, 16, 4, 512
+QW_NUM_BLOCKS, QW_BIAS = 40, 0.1
+# granite-8b: a paged kernel drain of the first 4 requests (default pool);
+# minicpm-2b: a continuous drain of all 8 with pow2 prefill buckets
+GR_REQUESTS = 4
+# qwen2.5-3b's long_500k variant (window 4 096) in continuous mode at a
+# capacity of one window: one prompt past it, so the prefill's window
+# bites, its ring is rolled and decode wraps it
+SWA_SHAPE, SWA_CAPACITY, SWA_PROMPT, SWA_MAX_NEW = "long_500k", 4096, 4500, 8
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -457,11 +502,11 @@ def check_kernels(torch, cfg):
             "library_ms": None}
 
 
-def workload(vocab):
-    """16 seeded prompts of 17–300 tokens; requests 1 and 3 share a
+def workload(vocab, n=N_REQUESTS):
+    """``n`` seeded prompts of 17–300 tokens; requests 1 and 3 share a
     128-token prefix."""
     rng = np.random.default_rng(SEED)
-    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=N_REQUESTS)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=n)
     prompts = [rng.integers(0, vocab, size=int(n)).astype(np.int32)
                for n in lens]
     prefix = rng.integers(0, vocab, size=SHARED_PREFIX).astype(np.int32)
@@ -620,14 +665,17 @@ def check_serve(cfg, streams, metrics):
     check_counts("paged drain", metrics["counts"], paged_want(cfg, metrics))
 
 
-def replay(torch, cfg, params, prompts, streams, attend, device):
-    """Teacher-forced per-step logits [n, MAX_NEW, V] (f32): prefill, then
-    each served token fed back through ``paged_decode_step``."""
+def replay(torch, cfg, params, prompts, streams, attend, device, *,
+           capacity=CAPACITY, max_new=MAX_NEW, prefill_attend=None):
+    """Teacher-forced per-step logits [n, max_new, V] (f32): prefill
+    (through ``prefill_attend``, the flash kernel when None), then each
+    served token fed back through ``paged_decode_step`` with ``attend``."""
+    from repro_torch.kernels import ops
     from repro_torch.models import prefill
     from repro_torch.models.paged import paged_decode_step
     from repro_torch.serve.batch import tail_targets, write_prefill
 
-    n, pages = len(prompts), CAPACITY // BLOCK_SIZE
+    n, pages = len(prompts), capacity // BLOCK_SIZE
     shape = (n * pages + 1, BLOCK_SIZE, cfg.n_layers, cfg.n_kv_heads,
              cfg.head_dim)
     pool = {"kv": {k: torch.zeros(shape, dtype=cfg.dtype, device=device)
@@ -639,14 +687,14 @@ def replay(torch, cfg, params, prompts, streams, attend, device):
     for i, p in enumerate(prompts):
         lg, cache = prefill(cfg, params, torch.as_tensor(p[None],
                                                          device=device),
-                            CAPACITY)
+                            capacity, attend=prefill_attend or ops.attention)
         write_prefill(pool, cache, tables[i], block_size=BLOCK_SIZE)
         first.append(lg[0, -1].float())
     steps.append(torch.stack(first))
     idx = torch.as_tensor([len(p) for p in prompts], dtype=torch.int32,
                           device=device)
     live = torch.ones(n, dtype=torch.bool, device=device)
-    for t in range(MAX_NEW - 1):
+    for t in range(max_new - 1):
         tok = torch.as_tensor([s[t] for s in streams], dtype=torch.int32,
                               device=device)
         blk, off = tail_targets(tables, idx, live, BLOCK_SIZE, n * pages)
@@ -906,15 +954,16 @@ def check_spec(cfg, streams, m):
                              f"{m['spec_full_rounds']}, partial {partial}")
 
 
-def replay_windows(torch, cfg, params, prompts, streams, attend, device):
-    """Teacher-forced per-step logits [n, MAX_NEW, V] (f32) through the
+def replay_windows(torch, cfg, params, prompts, streams, attend, device, *,
+                   capacity=CAPACITY, max_new=MAX_NEW):
+    """Teacher-forced per-step logits [n, max_new, V] (f32) through the
     verify step: prefill, then the served tokens fed back in windows of
     k + 1 through ``paged_verify_step``."""
     from repro_torch.models import prefill
     from repro_torch.models.paged import paged_verify_step
     from repro_torch.serve.batch import tail_targets_multi, write_prefill
 
-    n, pages = len(prompts), CAPACITY // BLOCK_SIZE
+    n, pages = len(prompts), capacity // BLOCK_SIZE
     shape = (n * pages + 1, BLOCK_SIZE, cfg.n_layers, cfg.n_kv_heads,
              cfg.head_dim)
     pool = {"kv": {k: torch.zeros(shape, dtype=cfg.dtype, device=device)
@@ -925,7 +974,7 @@ def replay_windows(torch, cfg, params, prompts, streams, attend, device):
     for i, p in enumerate(prompts):
         lg, cache = prefill(cfg, params, torch.as_tensor(p[None],
                                                          device=device),
-                            CAPACITY)
+                            capacity)
         write_prefill(pool, cache, tables[i], block_size=BLOCK_SIZE)
         first.append(lg[0, -1].float())
     steps = [torch.stack(first)[:, None]]
@@ -933,8 +982,8 @@ def replay_windows(torch, cfg, params, prompts, streams, attend, device):
                           device=device)
     live = torch.ones(n, dtype=torch.bool, device=device)
     served = torch.as_tensor(streams, dtype=torch.int32, device=device)
-    for t0 in range(0, MAX_NEW - 1, SPEC_K + 1):
-        Q = min(SPEC_K + 1, MAX_NEW - 1 - t0)
+    for t0 in range(0, max_new - 1, SPEC_K + 1):
+        Q = min(SPEC_K + 1, max_new - 1 - t0)
         blks, offs = tail_targets_multi(tables, idx, live, Q, BLOCK_SIZE,
                                         n * pages)
         pos = idx[:, None] + torch.arange(Q, dtype=torch.int32,
@@ -948,28 +997,31 @@ def replay_windows(torch, cfg, params, prompts, streams, attend, device):
     return torch.cat(steps, dim=1)
 
 
-def check_spec_replay(torch, cfg, params, prompts, streams, base, device):
-    """Phase 7b: spec streams that differ from the non-speculative ones
-    (near-ties in bf16) must be what the plain attention would serve."""
+def check_spec_replay(torch, cfg, params, prompts, streams, base, device,
+                      tag="[7b]", **shape):
+    """Phase 7b (and 15): spec streams that differ from the
+    non-speculative ones (near-ties in bf16) must be what the plain
+    attention would serve. ``shape``: the drain's ``capacity`` and
+    ``max_new``."""
     from repro_torch.kernels import paged_attention_multi, \
         paged_attention_multi_ref
 
     differ = [i for i in range(len(streams)) if streams[i] != base[i]]
     if not differ:
-        print("[7b] every speculative stream equals its non-speculative "
+        print(f"{tag} every speculative stream equals its non-speculative "
               "stream")
         return
     sel_p = [prompts[i] for i in differ]
     sel_s = [streams[i] for i in differ]
     ker = replay_windows(torch, cfg, params, sel_p, sel_s,
-                         paged_attention_multi, device)
+                         paged_attention_multi, device, **shape)
     plain = replay_windows(torch, cfg, params, sel_p, sel_s,
-                           paged_attention_multi_ref, device)
+                           paged_attention_multi_ref, device, **shape)
     diff = float((ker - plain).abs().max())
     served = torch.as_tensor(sel_s, device=device).long()
     served_logit = plain.gather(-1, served[..., None])[..., 0]
     gap = float((plain.max(-1).values - served_logit).max())
-    print(f"[7b] {len(differ)} of {len(streams)} speculative streams differ "
+    print(f"{tag} {len(differ)} of {len(streams)} speculative streams differ "
           f"from the non-speculative ones; window replay: max |logits "
           f"kernel - plain| {diff:.4f} (tol {TOL_REPLAY}); served token "
           f"within {gap:.4f} of the plain argmax logit (tol {TOL_REPLAY})")
@@ -1060,31 +1112,36 @@ def library_excess(out, ref, spread) -> float:
                   - LIB_P_RTOL * spread.float()).max())
 
 
-def check_flash_kernel(torch):
-    """Phase 8: the flash-attention kernel vs its plain version at both
-    prefill shapes of the serving paths — (a) recurrentgemma-2b's (10 query
-    heads over one KV head, Dh 256, the 2 048 window, a 2 300-token prompt)
-    and (b) smollm-360m's (15 over 5, Dh 64, causal, 300 tokens) — and at
-    edge cases; each timed beside the plain version and the library
-    yardstick. Returns the kernels-line entry of (a)."""
+PHASE8_FLASH_CASES = [
+    # (label, B, H, Hkv, S, Dh, dtype, causal, window); dtype by name
+    ("a recurrentgemma-2b", 1, 10, 1, 2300, 256, "bfloat16", True, 2048),
+    ("b smollm-360m", 1, 15, 5, 300, 64, "bfloat16", True, None),
+    ("S 100 (tail tile)", 1, 10, 1, 100, 256, "bfloat16", True, 64),
+    ("S 37 < one tile", 1, 15, 5, 37, 64, "bfloat16", True, None),
+    ("window 1", 1, 10, 1, 300, 256, "bfloat16", True, 1),
+    ("non-causal", 2, 4, 2, 200, 128, "bfloat16", False, None),
+    ("f32, window 64", 1, 10, 1, 300, 256, "float32", True, 64),
+    ("f32 smollm heads", 1, 15, 5, 300, 64, "float32", True, None),
+]
+
+
+def check_flash_kernel(torch, cases=PHASE8_FLASH_CASES, tag="[8]",
+                       seed=SEED + 8):
+    """Phase 8 (and 15): the flash-attention kernel vs its plain version
+    at each case, each timed beside the plain version and the library
+    yardstick, L2 cold. Phase 8's cases are both prefill shapes of the
+    serving paths — (a) recurrentgemma-2b's (10 query heads over one KV
+    head, Dh 256, the 2 048 window, a 2 300-token prompt) and (b)
+    smollm-360m's (15 over 5, Dh 64, causal, 300 tokens) — and edge
+    cases. Returns the kernels-line entry of each case, in order."""
     from repro_torch.kernels import attention_ref, flash_attention
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
-    bf16, f32 = torch.bfloat16, torch.float32
-    # (label, B, H, Hkv, S, Dh, dtype, causal, window)
-    cases = [
-        ("a recurrentgemma-2b", 1, 10, 1, 2300, 256, bf16, True, 2048),
-        ("b smollm-360m", 1, 15, 5, 300, 64, bf16, True, None),
-        ("S 100 (tail tile)", 1, 10, 1, 100, 256, bf16, True, 64),
-        ("S 37 < one tile", 1, 15, 5, 37, 64, bf16, True, None),
-        ("window 1", 1, 10, 1, 300, 256, bf16, True, 1),
-        ("non-causal", 2, 4, 2, 200, 128, bf16, False, None),
-        ("f32, window 64", 1, 10, 1, 300, 256, f32, True, 64),
-        ("f32 smollm heads", 1, 15, 5, 300, 64, f32, True, None),
-    ]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f32 = torch.float32
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
-    entry = None
+    rows = []
     for label, B, H, Hkv, S, Dh, dtype, causal, window in cases:
+        dtype = getattr(torch, dtype)
         q, k, v = flash_case(torch, gen, B=B, H=H, Hkv=Hkv, S=S, Dh=Dh,
                              dtype=dtype)
         out = flash_attention(q, k, v, causal=causal, window=window)
@@ -1094,7 +1151,7 @@ def check_flash_kernel(torch):
         excess = within_limit(out, ref)
         tol = (f"{TOL_F32}" if dtype == f32
                else f"{BF16_ATOL} + {BF16_RTOL} |plain|")
-        print(f"[8] flash_attention {label}: B={B} H={H} Hkv={Hkv} S={S} "
+        print(f"{tag} flash_attention {label}: B={B} H={H} Hkv={Hkv} S={S} "
               f"Dh={Dh} {str(dtype)[6:]} causal={causal} window={window}: "
               f"max_abs_err {err:.3e} (tol {tol}, |plain| max "
               f"{float(ref.float().abs().max()):.3f})")
@@ -1120,7 +1177,7 @@ def check_flash_kernel(torch):
             unmasked, _ = library_attention_ms(torch, q, k, v, causal, None,
                                                flush)
             no_window = library_excess(unmasked, ref, spread)
-            print(f"[8] flash_attention {label}: the library without its "
+            print(f"{tag} flash_attention {label}: the library without its "
                   f"window exceeds the limit by {no_window:.3e}")
             if not no_window > 0:
                 raise AssertionError(f"{label}: the library check does not "
@@ -1128,23 +1185,22 @@ def check_flash_kernel(torch):
         bound, bound_by = attention_bound_ms(q, k, causal, window)
         lib_tol = (tol if dtype == f32
                    else f"{tol} + {LIB_P_RTOL} plain(|v|)")
-        print(f"[8] flash_attention {label}: {ms:.4f} ms, plain "
+        print(f"{tag} flash_attention {label}: {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library (scaled_dot_product_attention, "
               f"max |library - plain| {lib_err:.3e}, tol {lib_tol}, "
               f"{lib_excess:.3e} past it) {library_ms:.4f} ms, "
               f"bound {bound:.5f} ms ({bound_by}), "
               f"{attention_pairs(S, S, causal, window)} pairs per head, "
               f"L2 cold")
-        if entry is None:
-            entry = {"name": "flash_attention", "route": "cuda",
+        rows.append({"name": "flash_attention", "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/"
                                "flash_attention.cu",
                      "replaces": "src/repro/kernels/flash_attention.py:98",
                      "launches": None, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": bound_by, "library_ms": library_ms}
+                     "bound_by": bound_by, "library_ms": library_ms})
     del flush
-    return entry
+    return rows
 
 
 def check_rglru_kernel(torch, R, card):
@@ -1290,23 +1346,23 @@ def serve_continuous(torch, cfg, params, device, want_fn, what):
 
 
 def replay_hybrid(torch, cfg, params, prompts, streams, attend, scan,
-                  device):
-    """Teacher-forced per-step logits [n, HYB_MAX_NEW, V] (f32): each
+                  device, *, capacity=HYB_CAPACITY, max_new=HYB_MAX_NEW):
+    """Teacher-forced per-step logits [n, max_new, V] (f32): each
     prompt's prefill through ``attend`` and ``scan`` into a slot cache,
     then the served tokens fed back through the slot decode, every slot at
     its own position."""
     from repro_torch.models import decode_step, prefill
     from repro_torch.serve.batch import init_slot_cache, write_slot
 
-    cache = init_slot_cache(cfg, len(prompts), HYB_CAPACITY, device=device)
+    cache = init_slot_cache(cfg, len(prompts), capacity, device=device)
     first = []
     for i, p in enumerate(prompts):
         lg, c = prefill(cfg, params, torch.as_tensor(p[None], device=device),
-                        HYB_CAPACITY, attend=attend, scan=scan)
+                        capacity, attend=attend, scan=scan)
         write_slot(cache, c, i)
         first.append(lg[0, -1].float())
     steps = [torch.stack(first)]
-    for t in range(HYB_MAX_NEW - 1):
+    for t in range(max_new - 1):
         tok = torch.as_tensor([[s[t]] for s in streams], dtype=torch.int32,
                               device=device)
         lg, cache = decode_step(cfg, params, tok, cache)
@@ -2304,6 +2360,447 @@ def check_gossip(torch, card, trainer):
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the dense configs of the eighth slice and the rest of the engine
+# ---------------------------------------------------------------------------
+
+def paged_row(torch, label, cfg, lengths, Q=None, tag="[15]"):
+    """The paged decode kernel (or, with ``Q``, the verify window) at a
+    dense config's serving shape against its plain version, bf16, timed
+    beside it, L2 cold: a pool of two slots' capacity, slot 1 sharing slot
+    0's first 7 pages. Returns the row's kernels-line entry."""
+    from repro_torch.kernels import (paged_attention, paged_attention_multi,
+                                     paged_attention_multi_ref,
+                                     paged_attention_ref)
+
+    kernel, plain = ((paged_attention_multi, paged_attention_multi_ref) if Q
+                     else (paged_attention, paged_attention_ref))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    n_pages, layer = QW_CAPACITY // BLOCK_SIZE, cfg.n_layers - 1
+    case = paged_case(torch, gen, lengths=lengths, H=cfg.n_heads,
+                      Hkv=cfg.n_kv_heads, Dh=cfg.head_dim, L=cfg.n_layers,
+                      bs=BLOCK_SIZE, n_pages=n_pages, num_blocks=2 * n_pages,
+                      dtype=cfg.dtype, alias_pages=7, Q=Q)
+    out, ref = kernel(*case, layer), plain(*case, layer)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    excess = within_limit(out, ref)
+    if not torch.isfinite(out).all() or excess > 0:
+        raise AssertionError(f"{kernel.__name__} {label}: |kernel - plain| "
+                             f"exceeds its limit by {excess}")
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
+    ms = cuda_ms(torch, lambda: kernel(*case, layer), flush=flush)
+    plain_ms = cuda_ms(torch, lambda: plain(*case, layer), flush=flush)
+    bound, bound_by = bound_ms(case[0], case[1], case[3], case[4])
+    del flush
+    print(f"{tag} {kernel.__name__} {label}: B={len(lengths)} Q={Q or 1} "
+          f"H={cfg.n_heads} Hkv={cfg.n_kv_heads} Dh={cfg.head_dim} "
+          f"L={cfg.n_layers} n_pages={n_pages}: max_abs_err {err:.3e} (tol "
+          f"{BF16_ATOL} + {BF16_RTOL} |plain|); {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by}), L2 cold")
+    return {"name": kernel.__name__, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:"
+                        + ("145" if Q else "213"),
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def check_new_shapes(torch, configs):
+    """Phase 15 (rows): the paged kernels at the shapes the new configs
+    hand them, each against its plain version and timed: decode at
+    qwen2.5-3b's heads (16 over 2 of 128) and granite-8b's (32 over 8), and
+    qwen's verify window at k 3 (32 rows). Returns ``{label: entry}``."""
+    qw, gr = configs[QW_ARCH], configs[GR_ARCH]
+    lengths = [258, 300, 17, 316]
+    return {
+        "decode qwen": paged_row(torch, "qwen2.5-3b", qw, lengths),
+        "decode granite": paged_row(torch, "granite-8b", gr, lengths),
+        "verify qwen": paged_row(torch, "qwen2.5-3b k 3", qw,
+                                 [258, 300, 20, 316], Q=SPEC_K + 1),
+    }
+
+
+def dense_flash_cases():
+    """Phase 15's flash-attention cases, as :func:`check_flash_kernel`
+    takes them: the cohort drain's batch-4 prefill and the sliding-window
+    prefill at qwen2.5-3b's heads, minicpm-2b's bucketed prefill (36 heads
+    of 64) and granite-8b's paged prefill (32 heads over 8 of 128)."""
+    from repro_torch.configs import get
+
+    qw, mc, gr = (get(a).config for a in (QW_ARCH, MC_ARCH, GR_ARCH))
+    window = get(QW_ARCH).model_for_shape(SWA_SHAPE).window
+    return [
+        ("qwen2.5-3b cohort prefill", 4, qw.n_heads, qw.n_kv_heads, 300,
+         qw.head_dim, "bfloat16", True, None),
+        ("qwen2.5-3b long_500k prefill", 1, qw.n_heads, qw.n_kv_heads,
+         SWA_PROMPT, qw.head_dim, "bfloat16", True, window),
+        ("minicpm-2b bucketed prefill", 1, mc.n_heads, mc.n_kv_heads, 512,
+         mc.head_dim, "bfloat16", True, None),
+        ("granite-8b prefill", 1, gr.n_heads, gr.n_kv_heads, 300,
+         gr.head_dim, "bfloat16", True, None),
+    ]
+
+
+def seeded_biases(torch, params, scale, seed):
+    """Fill every QKV bias leaf with ``scale`` x a normal draw from a
+    generator seeded ``seed`` on the leaves' device, in place."""
+    attn = params["layers"]["attn"]
+    gen = torch.Generator(device=attn["wq"]["b"].device).manual_seed(seed)
+    for name in ("wq", "wk", "wv"):
+        b = attn[name]["b"]
+        b.copy_(scale * torch.randn(b.shape, generator=gen, device=b.device))
+
+
+def dense_want(cfg, st, kernel=True, rounds=0):
+    """Launches a dense drain must count: :func:`paged_want` on the paged
+    kernel path; elsewhere (the reference read path, cohort and continuous
+    modes) the flash kernel per layer per target prefill only."""
+    if kernel:
+        return paged_want(cfg, st, rounds)
+    return {"flash_attention": cfg.n_layers * st["prefills"]}
+
+
+def serve_dense(torch, what, cfg, params, device, prompts, max_new, want_fn,
+                **kw):
+    """Drain ``prompts`` through ``ServeEngine(cfg, params, **kw)``: full
+    streams in the vocabulary, and every kernel wrapper's count equal to
+    ``want_fn(stats)``. Returns (engine, streams, metrics)."""
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(cfg, params, device=device, **kw)
+    streams, m = drain(torch, eng, prompts, max_new)
+    if any(len(s) != max_new for s in streams):
+        raise AssertionError(f"{what}: stream lengths "
+                             f"{[len(s) for s in streams]}")
+    if not all(0 <= t < cfg.vocab for s in streams for t in s):
+        raise AssertionError(f"{what}: token out of the vocabulary")
+    check_counts(what, m["counts"], want_fn(m))
+    return eng, streams, m
+
+
+def replay_cohort(torch, cfg, params, prompts, streams, attend, device, *,
+                  max_batch, capacity, max_new):
+    """Teacher-forced per-step logits [n, max_new, V] (f32) of the cohort
+    drain: each cohort's left-padded batch prefill through ``attend``, then
+    its served tokens fed back through ``decode_step``."""
+    from repro_torch.models import decode_step, prefill
+
+    out = []
+    for c in range(0, len(prompts), max_batch):
+        group, served = prompts[c:c + max_batch], streams[c:c + max_batch]
+        S = max(map(len, group))
+        toks = np.zeros((len(group), S), np.int32)
+        for i, p in enumerate(group):
+            toks[i, S - len(p):] = p
+        lg, cache = prefill(cfg, params, torch.as_tensor(toks, device=device),
+                            capacity, attend=attend)
+        steps = [lg[:, -1].float()]
+        for t in range(max_new - 1):
+            tok = torch.as_tensor([[s[t]] for s in served], dtype=torch.int32,
+                                  device=device)
+            lg, cache = decode_step(cfg, params, tok, cache)
+            steps.append(lg[:, -1].float())
+        out.append(torch.stack(steps, dim=1))
+    return torch.cat(out)
+
+
+def served_gap(torch, plain, streams, device) -> float:
+    """How far below the plain replay's argmax logit the served tokens'
+    logits fall, at worst."""
+    served = torch.as_tensor(streams, device=device).long()
+    served_logit = plain.gather(-1, served[..., None])[..., 0]
+    return float((plain.max(-1).values - served_logit).max())
+
+
+def check_agreement(torch, tag, ker, plain, streams, device):
+    """The kernel replay's logits within ``TOL_REPLAY`` of the plain
+    replay's, and every served token within it of the plain argmax."""
+    diff = float((ker - plain).abs().max())
+    gap = served_gap(torch, plain, streams, device)
+    print(f"{tag} replay over {len(streams)} x {len(streams[0])} steps: max "
+          f"|logits kernels - plain| {diff:.4f} (tol {TOL_REPLAY}); served "
+          f"token within {gap:.4f} of the plain argmax logit (tol "
+          f"{TOL_REPLAY}); |logit| max {float(plain.abs().max()):.3f}")
+    if not torch.isfinite(ker).all() or diff > TOL_REPLAY \
+            or gap > TOL_REPLAY:
+        raise AssertionError(f"{tag} replay: the served streams disagree "
+                             "with the plain versions beyond the bf16 "
+                             "tolerance")
+
+
+def check_same_or_near_tie(torch, tag, cfg, params, prompts, streams, base,
+                           device, *, capacity, max_new):
+    """``streams`` must equal ``base`` wherever the teacher-forced logits
+    tell them apart: where a stream differs, both it and its base are
+    replayed through the plain attention, and every served token must lie
+    within ``TOL_REPLAY`` of the plain argmax logit (a bf16 near-tie)."""
+    from repro_torch.kernels import paged_attention_ref
+
+    differ = [i for i in range(len(streams)) if streams[i] != base[i]]
+    if not differ:
+        print(f"{tag} every stream equals the kernel drain's")
+        return 0
+    sel = [prompts[i] for i in differ]
+    gaps = [served_gap(torch, replay(
+        torch, cfg, params, sel, [s[i] for i in differ], paged_attention_ref,
+        device, capacity=capacity, max_new=max_new), [s[i] for i in differ],
+        device) for s in (streams, base)]
+    print(f"{tag} {len(differ)} of {len(streams)} streams differ from the "
+          f"kernel drain's; under the plain replay each served token is "
+          f"within {max(gaps):.4f} of the argmax logit (tol {TOL_REPLAY})")
+    if max(gaps) > TOL_REPLAY:
+        raise AssertionError(f"{tag}: streams differ beyond a bf16 near-tie")
+    return len(differ)
+
+
+def check_qwen(torch, card, cfg, params, device, rows):
+    """Phase 15 (a): full-width qwen2.5-3b through every serving mode of
+    the engine: the cohort drain, the paged drain on the kernel and the
+    reference read paths and with pow2 prefill buckets, speculative
+    decoding at rounds 1 and the default, a live Recorder, and the serving
+    CLI's ``--metrics``."""
+    import tempfile
+
+    from repro_torch.kernels import (attention_ref, ops, paged_attention,
+                                     paged_attention_ref)
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.obs import Recorder
+    from repro_torch.serve import SpecConfig
+    from repro_torch.weights import truncate_params
+
+    prompts = workload(cfg.vocab, n=QW_REQUESTS)
+    shape = {"capacity": QW_CAPACITY, "max_new": QW_MAX_NEW}
+    paged = dict(mode="paged", capacity=QW_CAPACITY, max_batch=QW_MAX_BATCH,
+                 block_size=BLOCK_SIZE, num_blocks=QW_NUM_BLOCKS,
+                 decode_chunk=DECODE_CHUNK)
+    keys = ("wall_s", "tokens", "tokens_per_s", "ttft_p50_ms", "ttft_max_ms",
+            "prefills", "decode_steps", "decode_dispatches", "preemptions",
+            "counts")
+
+    # cohort: two left-padded cohorts of 4, one batch-4 flash launch per
+    # layer per cohort prefill
+    eng, cohort, m = serve_dense(
+        torch, "[15a] cohort drain", cfg, params, device, prompts,
+        QW_MAX_NEW, lambda st: dense_want(cfg, st, kernel=False),
+        mode="cohort", capacity=QW_CAPACITY, max_batch=QW_MAX_BATCH)
+    if m["prefills"] != 2:
+        raise AssertionError(f"cohort drain: {m['prefills']} cohorts")
+    rows["flash cohort"]["launches"] = m["flash_launches"]
+    print("[15a] cohort " + json.dumps({k: m[k] for k in keys if k in m}))
+    kw = {"max_batch": QW_MAX_BATCH, **shape}
+    check_agreement(torch, "[15a] cohort", replay_cohort(
+        torch, cfg, eng.params, prompts, cohort, ops.attention, device, **kw),
+        replay_cohort(torch, cfg, eng.params, prompts, cohort, attention_ref,
+                      device, **kw), cohort, device)
+    del eng
+
+    # paged, the kernel read path, with a live recorder
+    rec = Recorder()
+    eng, kernel, m = serve_dense(
+        torch, "[15a] paged kernel drain", cfg, params, device, prompts,
+        QW_MAX_NEW, lambda st: dense_want(cfg, st), kv_impl="kernel",
+        recorder=rec, **paged)
+    if m["preemptions"] < 1:
+        raise AssertionError("paged drain: the pool did not force a "
+                             "preemption")
+    rows["decode qwen"]["launches"] = m["launches"]
+    snap = rec.snapshot()
+    obs = snap["observations"]
+    if (snap["counters"].get("serve_finished") != QW_REQUESTS
+            or obs["serve_ttft_s"]["count"] != QW_REQUESTS
+            or obs["serve_latency_s"]["count"] != QW_REQUESTS):
+        raise AssertionError(f"recorder: finished "
+                             f"{snap['counters'].get('serve_finished')}, "
+                             f"observations {obs}")
+    print("[15a] paged kernel " + json.dumps({k: m[k] for k in keys}))
+    print(f"[15a] recorder: serve_finished "
+          f"{snap['counters']['serve_finished']:.0f}, TTFT p50 "
+          f"{obs['serve_ttft_s']['p50'] * 1e3:.1f} ms, max "
+          f"{obs['serve_ttft_s']['max'] * 1e3:.1f} ms, latency p50 "
+          f"{obs['serve_latency_s']['p50'] * 1e3:.1f} ms, "
+          f"serve_tokens_per_sec {snap['gauges']['serve_tokens_per_sec']:.1f}"
+          f" (drain {m['tokens_per_s']:.1f} tokens/s); {card}")
+    check_agreement(torch, "[15a] paged kernel", replay(
+        torch, cfg, eng.params, prompts, kernel, paged_attention, device,
+        **shape), replay(torch, cfg, eng.params, prompts, kernel,
+                         paged_attention_ref, device, **shape), kernel,
+        device)
+    del eng
+
+    for what, extra in (("reference", {"kv_impl": "reference"}),
+                        ("bucketed", {"kv_impl": "kernel",
+                                      "prefill_bucket": True})):
+        eng, streams, m = serve_dense(
+            torch, f"[15a] paged {what} drain", cfg, params, device,
+            prompts, QW_MAX_NEW, lambda st, k=what != "reference":
+            dense_want(cfg, st, kernel=k), **extra, **paged)
+        print(f"[15a] paged {what} " + json.dumps({k: m[k] for k in keys}))
+        check_same_or_near_tie(torch, f"[15a] paged {what}", cfg, eng.params,
+                               prompts, streams, kernel, device, **shape)
+        del eng
+
+    # speculative decoding on the damped target, its first 2 layers the
+    # draft, beside a plain paged drain of the same target
+    target = damped(torch, params, SPEC_DRAFT_LAYERS, SPEC_DAMP)
+    eng, base, bm = serve_dense(
+        torch, "[15a] damped paged drain", cfg, target, device, prompts,
+        QW_MAX_NEW, lambda st: dense_want(cfg, st), **paged)
+    print("[15a] damped target, plain " + json.dumps({k: bm[k] for k in keys}))
+    del eng
+    draft = (cfg.with_overrides(n_layers=SPEC_DRAFT_LAYERS),
+             truncate_params(target, SPEC_DRAFT_LAYERS))
+    for rounds in (1, None):
+        spec = SpecConfig(*draft, k=SPEC_K, rounds=rounds)
+        n_rounds = spec.rounds_for(DECODE_CHUNK)
+        eng, streams, m = serve_dense(
+            torch, f"[15a] speculative drain, rounds {n_rounds}", cfg,
+            target, device, prompts, QW_MAX_NEW, lambda st, r=n_rounds:
+            dense_want(cfg, st, rounds=st["decode_dispatches"] * r),
+            speculate=spec, **paged)
+        if rounds is None:
+            rows["verify qwen"]["launches"] = m["multi_launches"]
+        print(f"[15a] speculative, rounds {n_rounds} " + json.dumps(
+            {k: m[k] for k in keys + ("spec_proposed", "spec_accepted",
+                                      "multi_launches")}))
+        check_spec_replay(torch, cfg, eng.params, prompts, streams, base,
+                          device, tag=f"[15a] rounds {n_rounds}", **shape)
+        del eng
+    del target, draft
+
+    # the serving CLI, cohort mode with --metrics (reduced widths: the CLI
+    # draws its weights on the host)
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_main(["--arch", QW_ARCH, "--reduced", "--mode", "cohort",
+                    "--metrics", tmp, "--requests", "4",
+                    "--device", device.type])
+        files = sorted(os.listdir(tmp))
+    if files != ["metrics.jsonl", "metrics.prom"]:
+        raise AssertionError(f"serving CLI --metrics wrote {files}")
+    print(f"[15a] serving CLI --mode cohort --metrics wrote {files}")
+
+
+def check_swa(torch, cfg, params, device, rows):
+    """Phase 15 (d): qwen2.5-3b's long_500k variant (window 4 096) in
+    continuous mode at a capacity of one window: a prompt past the window,
+    the flash kernel with the window at Dh 128, the rolled ring wrapped by
+    decode; the streams replayed teacher-forced with the plain attention."""
+    from repro_torch.kernels import attention_ref, ops
+
+    prompt = [np.random.default_rng(SEED + 15).integers(
+        0, cfg.vocab, size=SWA_PROMPT).astype(np.int32)]
+    eng, streams, m = serve_dense(
+        torch, "[15d] sliding-window drain", cfg, params, device, prompt,
+        SWA_MAX_NEW, lambda st: dense_want(cfg, st, kernel=False),
+        mode="continuous", capacity=SWA_CAPACITY, max_batch=1)
+    rows["flash swa"]["launches"] = m["flash_launches"]
+    print("[15d] " + json.dumps({k: m[k] for k in (
+        "wall_s", "tokens", "tokens_per_s", "ttft_p50_ms", "counts")}))
+    kw = {"capacity": SWA_CAPACITY, "max_new": SWA_MAX_NEW}
+    check_agreement(torch, "[15d]", replay_hybrid(
+        torch, cfg, eng.params, prompt, streams, ops.attention, ops.rglru,
+        device, **kw), replay_hybrid(torch, cfg, eng.params, prompt,
+                                     streams, attention_ref, ops.rglru,
+                                     device, **kw), streams, device)
+
+
+def check_granite(torch, cfg, params, device, rows):
+    """Phase 15 (b): full-width granite-8b, a paged kernel drain of 4
+    requests, replayed teacher-forced through the kernels (flash prefill,
+    paged decode) and through both plain versions."""
+    from repro_torch.kernels import (attention_ref, paged_attention,
+                                     paged_attention_ref)
+
+    prompts = workload(cfg.vocab, n=QW_REQUESTS)[:GR_REQUESTS]
+    shape = {"capacity": QW_CAPACITY, "max_new": QW_MAX_NEW}
+    eng, streams, m = serve_dense(
+        torch, "[15b] granite paged drain", cfg, params, device, prompts,
+        QW_MAX_NEW, lambda st: dense_want(cfg, st), mode="paged",
+        capacity=QW_CAPACITY, max_batch=QW_MAX_BATCH, block_size=BLOCK_SIZE,
+        decode_chunk=DECODE_CHUNK)
+    rows["decode granite"]["launches"] = m["launches"]
+    rows["flash granite"]["launches"] = m["flash_launches"]
+    print("[15b] " + json.dumps({k: m[k] for k in (
+        "wall_s", "tokens", "tokens_per_s", "ttft_p50_ms", "ttft_max_ms",
+        "decode_steps", "counts")}))
+    check_agreement(torch, "[15b]", replay(
+        torch, cfg, eng.params, prompts, streams, paged_attention, device,
+        **shape), replay(torch, cfg, eng.params, prompts, streams,
+                         paged_attention_ref, device,
+                         prefill_attend=attention_ref, **shape), streams,
+        device)
+
+
+def check_minicpm(torch, cfg, params, device, rows):
+    """Phase 15 (c): full-width minicpm-2b (MHA, 36 heads of 64), a
+    continuous drain with pow2 prefill buckets, replayed teacher-forced
+    (at exact length) with the flash kernel and the plain attention."""
+    from repro_torch.kernels import attention_ref, ops
+
+    prompts = workload(cfg.vocab, n=QW_REQUESTS)
+    eng, streams, m = serve_dense(
+        torch, "[15c] minicpm continuous drain", cfg, params, device,
+        prompts, QW_MAX_NEW, lambda st: dense_want(cfg, st, kernel=False),
+        mode="continuous", capacity=QW_CAPACITY, max_batch=QW_MAX_BATCH,
+        decode_chunk=DECODE_CHUNK, prefill_bucket=True)
+    rows["flash minicpm"]["launches"] = m["flash_launches"]
+    print("[15c] " + json.dumps({k: m[k] for k in (
+        "wall_s", "tokens", "tokens_per_s", "ttft_p50_ms", "ttft_max_ms",
+        "prefills", "decode_steps", "counts")}))
+    kw = {"capacity": QW_CAPACITY, "max_new": QW_MAX_NEW}
+    check_agreement(torch, "[15c]", replay_hybrid(
+        torch, cfg, eng.params, prompts, streams, ops.attention, ops.rglru,
+        device, **kw), replay_hybrid(torch, cfg, eng.params, prompts,
+                                     streams, attention_ref, ops.rglru,
+                                     device, **kw), streams, device)
+
+
+def check_dense_configs(torch, card, device, flash_rows):
+    """Phase 15: the paged kernels at the new configs' shapes, then each
+    config served at its published width, one model on the card at a time.
+    ``flash_rows``: :func:`check_flash_kernel`'s entries for
+    :func:`dense_flash_cases`, in order. Prints the rows of the kernel
+    table it measured, with their launches, as one JSON line."""
+    from repro_torch.configs import get
+    from repro_torch.models import init_params
+
+    configs = {a: get(a).config for a in (QW_ARCH, GR_ARCH, MC_ARCH)}
+    swa = get(QW_ARCH).model_for_shape(SWA_SHAPE)
+    t0 = time.perf_counter()
+    rows = check_new_shapes(torch, configs)
+    rows.update(zip(("flash cohort", "flash swa", "flash minicpm",
+                     "flash granite"), flash_rows, strict=True))
+    print(f"[15 rows] took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def load(arch):
+        params = init_params(configs[arch], torch.Generator(
+            device=device).manual_seed(SEED), device=device)
+        if configs[arch].qkv_bias:
+            seeded_biases(torch, params, QW_BIAS, SEED + 15)
+        return params
+
+    for part, arch, fn in (
+            ("a", QW_ARCH, lambda p: check_qwen(
+                torch, card, configs[QW_ARCH], p, device, rows)),
+            ("d", QW_ARCH, lambda p: check_swa(torch, swa, p, device, rows)),
+            ("b", GR_ARCH, lambda p: check_granite(
+                torch, configs[GR_ARCH], p, device, rows)),
+            ("c", MC_ARCH, lambda p: check_minicpm(
+                torch, configs[MC_ARCH], p, device, rows))):
+        t0 = time.perf_counter()
+        if part != "d":   # (d) serves (a)'s weights
+            params = None
+            torch.cuda.empty_cache()
+            params = load(arch)
+        fn(params)
+        print(f"[15{part}] took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    del params
+    torch.cuda.empty_cache()
+    print("[15 rows] " + json.dumps(rows) + f" {card}")
+
+
 def main() -> int:
     import torch
 
@@ -2396,7 +2893,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     hcfg = get(HYBRID_ARCH).config
-    kernels.append(check_flash_kernel(torch))
+    kernels.append(check_flash_kernel(torch)[0])
     lap("[8]")
     kernels.append(check_rglru_kernel(torch, hcfg.lru_width, card))
     lap("[9]")
@@ -2451,6 +2948,11 @@ def main() -> int:
     lap("[13]")
     check_gossip(torch, card, trainer)
     lap("[14]")
+    torch.cuda.empty_cache()
+    flash_rows = check_flash_kernel(torch, dense_flash_cases(), tag="[15]",
+                                    seed=SEED + 16)
+    check_dense_configs(torch, card, device, flash_rows)
+    lap("[15]")
     print(f"[ ] total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

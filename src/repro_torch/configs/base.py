@@ -1,4 +1,5 @@
-"""ArchSpec: a registered architecture's ModelConfig and its test-size cut."""
+"""ArchSpec: a registered architecture's ModelConfig, its framework-level
+policy and its test-size cut."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,10 +12,32 @@ from repro_torch.models.config import ModelConfig
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     config: ModelConfig
+    # How the decentralized bilevel trainer maps nodes onto the mesh:
+    #   'dp'      — per-node parameter copies, node axis = data (the
+    #               paper's setting)
+    #   'fsdp_gt' — params sharded inside a node, gradient tracking between
+    #               node groups (the JAX package's mesh placement)
+    train_mode: str = "dp"
+    # long_500k handling: 'native' (state/window built in), 'swa' (run the
+    # sliding-window variant, window below), 'skip' (full-attention enc-dec)
+    long_ctx: str = "swa"
+    swa_window: int = 4096
+    notes: str = ""
 
     @property
     def name(self) -> str:
         return self.config.name
+
+    def model_for_shape(self, shape: str) -> ModelConfig:
+        """Shape-specific model variant: long_500k swaps in sliding-window
+        attention for full-attention decoder archs."""
+        cfg = self.config
+        if shape == "long_500k":
+            if self.long_ctx == "skip":
+                raise ValueError(f"{cfg.name} skips long_500k ({self.notes})")
+            if self.long_ctx == "swa":
+                cfg = cfg.with_overrides(window=self.swa_window)
+        return cfg
 
     def reduced(self) -> ModelConfig:
         """Smoke-test variant: 2 layers (the hybrid family: one block of

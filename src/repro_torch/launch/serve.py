@@ -1,18 +1,24 @@
 """CLI serving driver for the port: continuous batching over slot caches
-(the default, as in the JAX package's CLI), or paged KV over the CUDA
-paged-attention kernel. Every attention prefill runs the CUDA
-flash-attention kernel, the hybrid family's recurrent prefill the RG-LRU
-scan, and every rwkv6 prefill and decode step the WKV scan.
+(the default, as in the JAX package's CLI), paged KV over the CUDA
+paged-attention kernel or the gather/scatter reference, and the legacy
+cohort drain. Every attention prefill runs the CUDA flash-attention kernel,
+the hybrid family's recurrent prefill the RG-LRU scan, and every rwkv6
+prefill and decode step the WKV scan.
 
   python -m repro_torch.launch.serve --arch smollm-360m --mode paged \\
       --requests 8
+  python -m repro_torch.launch.serve --arch qwen2.5-3b --reduced \\
+      --device cpu --mode cohort
   python -m repro_torch.launch.serve --arch smollm-360m --reduced \\
-      --device cpu --mode paged --block-size 8 --num-blocks 16
+      --device cpu --mode paged --block-size 8 --num-blocks 16 \\
+      --kv-impl reference --metrics out/
   python -m repro_torch.launch.serve --arch recurrentgemma-2b
   python -m repro_torch.launch.serve --arch rwkv6-1.6b --reduced \\
       --device cpu
 
-Weights are random, drawn from ``--seed``.
+Weights are random, drawn from ``--seed``. ``--metrics DIR`` writes
+``metrics.jsonl`` and ``metrics.prom``, ``--trace-dir DIR`` a
+Perfetto-loadable ``trace.json`` (the JAX CLI's files).
 """
 from __future__ import annotations
 
@@ -25,7 +31,9 @@ import torch
 from repro_torch.configs import get
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
+from repro_torch.obs import cli_recorder
 from repro_torch.serve import ServeEngine
+from repro_torch.serve.engine import KV_IMPLS
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -36,10 +44,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--capacity", type=int, default=64)
     ap.add_argument("--max-batch", type=int, default=4)
-    ap.add_argument("--mode", choices=("continuous", "paged"),
-                    default="continuous",
-                    help="continuous batching over slot caches (every "
-                         "family the port runs) or paged KV (dense)")
+    ap.add_argument("--mode", choices=("continuous", "cohort", "paged"),
+                    default="continuous")
     ap.add_argument("--decode-chunk", type=int, default=8,
                     help="decode tokens per chunk")
     ap.add_argument("--block-size", type=int, default=16,
@@ -48,9 +54,14 @@ def main(argv: list[str] | None = None) -> None:
                     help="physical KV blocks in the pool "
                          "(paged mode; default: "
                          "max_batch*capacity/block_size)")
-    ap.add_argument("--kv-impl", choices=("auto", "kernel"), default="auto",
-                    help="paged attention: the CUDA kernel (its plain "
-                         "version for --device cpu)")
+    ap.add_argument("--kv-impl", choices=KV_IMPLS, default="auto",
+                    help="paged attention: the CUDA kernel (auto, kernel "
+                         "and pallas; its plain version for --device cpu), "
+                         "or the gather/scatter reference")
+    ap.add_argument("--metrics", default=None, metavar="DIR",
+                    help="write metrics.jsonl + metrics.prom into DIR")
+    ap.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="write a Perfetto-loadable trace.json into DIR")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -60,11 +71,12 @@ def main(argv: list[str] | None = None) -> None:
     cfg = spec.reduced() if args.reduced else spec.config
     params = init_params(cfg, torch.Generator().manual_seed(args.seed),
                          device=device)
+    recorder, finalize_obs = cli_recorder(args.metrics, args.trace_dir)
     eng = ServeEngine(cfg, params, capacity=args.capacity,
                       max_batch=args.max_batch, mode=args.mode,
                       decode_chunk=args.decode_chunk,
                       block_size=args.block_size, num_blocks=args.num_blocks,
-                      kv_impl=args.kv_impl, device=device)
+                      kv_impl=args.kv_impl, recorder=recorder, device=device)
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
         prompt = rng.integers(0, cfg.vocab, size=rng.integers(3, 10))
@@ -79,6 +91,8 @@ def main(argv: list[str] | None = None) -> None:
           f"({total_toks / dt:.1f} tok/s, {args.requests} requests, "
           f"mode={args.mode}, device={device})")
     print("  " + ", ".join(f"{k}={v}" for k, v in eng.stats.items()))
+    for p in finalize_obs():
+        print("obs:", p)
 
 
 if __name__ == "__main__":

@@ -32,9 +32,9 @@ def init_attn(cfg, gen: torch.Generator, d_model: int | None = None):
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pd = cfg.param_dtype
     return {
-        "wq": init_dense(gen, D, H * Dh, pd),
-        "wk": init_dense(gen, D, Hkv * Dh, pd),
-        "wv": init_dense(gen, D, Hkv * Dh, pd),
+        "wq": init_dense(gen, D, H * Dh, pd, bias=cfg.qkv_bias),
+        "wk": init_dense(gen, D, Hkv * Dh, pd, bias=cfg.qkv_bias),
+        "wv": init_dense(gen, D, Hkv * Dh, pd, bias=cfg.qkv_bias),
         "wo": init_dense(gen, H * Dh, D, pd, scale=(H * Dh) ** -0.5),
     }
 

@@ -2,12 +2,12 @@
 
 The field names are the JAX package's, so a test can build both configs
 from the same overrides; ``dtype`` and ``param_dtype`` are ``torch.dtype``s.
-The port runs the ``dense``, ``hybrid`` (RecurrentGemma) and ``ssm``
+The port runs the ``dense`` (with QKV bias, and with a sliding ``window``
+for the ``long_500k`` variants), ``hybrid`` (RecurrentGemma) and ``ssm``
 (RWKV-6) families so far; the fields other families need come back with
-the slice that first runs them (``ROADMAP.md``). ``window``, ``norm``,
-``qkv_bias`` and ``logits_softcap`` are kept so that
-``models.transformer.require_ported`` can reject a config that needs more
-than the port has."""
+the slice that first runs them (``ROADMAP.md``). ``norm`` and
+``logits_softcap`` are kept so that ``models.transformer.require_ported``
+can reject a config that needs more than the port has."""
 from __future__ import annotations
 
 import dataclasses

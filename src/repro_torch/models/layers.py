@@ -1,9 +1,10 @@
-"""Primitive layers: RMSNorm, RoPE, projections, the SwiGLU and GELU MLPs,
-tied embeddings. Parameters are nested dicts of tensors with the JAX
-package's names and layouts (``w`` is ``[d_in, d_out]``), so weights carry
-over unchanged. The variants other families use (LayerNorm, QKV bias, logit
-soft-capping) are not ported yet; ``models.transformer.require_ported``
-rejects configs that need them.
+"""Primitive layers: RMSNorm, RoPE, projections (with an optional bias
+``b``, the QKV bias of ``qwen2.5-3b``), the SwiGLU and GELU MLPs, tied
+embeddings. Parameters are nested dicts of tensors with the JAX package's
+names and layouts (``w`` is ``[d_in, d_out]``), so weights carry over
+unchanged. The variants other families use (LayerNorm, logit soft-capping)
+are not ported yet; ``models.transformer.require_ported`` rejects configs
+that need them.
 
 The arithmetic follows ``repro.models.layers`` step by step — where a value
 is cast, and in which dtype a statistic is taken — because the port is held

@@ -65,20 +65,24 @@ FAMILIES = ("dense", "hybrid", "ssm")
 
 def require_ported(cfg: ModelConfig) -> None:
     """Reject configs the port cannot run yet: it has the dense, hybrid and
-    ssm families with RMSNorm, SwiGLU or GELU, full attention (the hybrid
-    family's local window is its own), no QKV bias and no logit
-    soft-capping (``smollm-360m``, ``recurrentgemma-2b``, ``rwkv6-1.6b``)."""
-    if (cfg.family not in FAMILIES or cfg.window is not None
+    ssm families with RMSNorm, SwiGLU or GELU and no logit soft-capping; the
+    dense family with or without QKV bias and with full or sliding-window
+    attention (``cfg.window``; the hybrid family's local window is its
+    own). That is ``smollm-360m``, ``qwen2.5-3b``, ``granite-8b``,
+    ``minicpm-2b`` and their ``long_500k`` variants, ``recurrentgemma-2b``
+    and ``rwkv6-1.6b``."""
+    if (cfg.family not in FAMILIES
+            or (cfg.window is not None and cfg.family != "dense")
             or cfg.norm != "rmsnorm" or cfg.act not in ("swiglu", "gelu")
-            or cfg.qkv_bias or cfg.logits_softcap
+            or cfg.logits_softcap
             or not set(cfg.block_pattern) <= {"rec", "attn"}):
         raise NotImplementedError(
             f"{cfg.name}: family={cfg.family!r} window={cfg.window!r} "
             f"norm={cfg.norm!r} act={cfg.act!r} qkv_bias={cfg.qkv_bias} "
             f"logits_softcap={cfg.logits_softcap} "
             f"block_pattern={cfg.block_pattern}: the port runs the dense, "
-            "hybrid and ssm RMSNorm families only (ROADMAP.md, queue 1, "
-            "remaining model families)")
+            "hybrid and ssm RMSNorm families only, a window on the dense "
+            "family only (ROADMAP.md, queue 1, remaining model families)")
 
 
 def layer_params(layers: Params, i: int) -> Params:
@@ -375,7 +379,10 @@ def prefill(cfg: ModelConfig, params: Params, tokens, capacity: int, *,
     ``{"blocks", "rem", "idx"}``, whose attention layers keep a ring of
     ``min(capacity, local_window)`` positions and whose recurrent layers
     keep ``{"h", "conv"}``; ssm ``{"state": {"tm_shift", "cm_shift", "S"},
-    "idx"}`` with a leading layer axis (``capacity`` unused).
+    "idx"}`` with a leading layer axis (``capacity`` unused). A dense config
+    with ``window`` attends within it and keeps the trailing ``capacity``
+    positions, as a ring (absolute position ``p`` at slot ``p % capacity``)
+    when ``capacity == window``.
 
     ``length`` (≤ S, dense only) marks the prompt as right-padded: logits are
     taken at position ``length - 1`` and the cache resumes from position
@@ -429,9 +436,9 @@ def prefill(cfg: ModelConfig, params: Params, tokens, capacity: int, *,
         ks, vs = [], []
         for i in range(cfg.n_layers):
             x, (k, v) = _attn_layer_kv(cfg, layer_params(params["layers"], i),
-                                       x, positions, window=None,
+                                       x, positions, window=cfg.window,
                                        attend=attend)
-            k, v = _kv_to_cache(k, v, capacity)
+            k, v = _kv_to_cache(k, v, capacity, cfg.window)
             ks.append(k)
             vs.append(v)
         cache = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)},
@@ -493,9 +500,10 @@ def decode_step(cfg: ModelConfig, params: Params, tokens, cache, *,
     batch, or a ``[B]`` tensor, one per slot (the slot layout of
     :func:`repro_torch.serve.batch.init_slot_cache`). Every cache leaf is
     written in place; the returned cache holds them and ``idx + 1``. The
-    hybrid family's attention layers write their rings at ``idx %
-    capacity``; the ssm family's WKV step runs through ``wkv`` (the
-    kernels' dispatch unless the caller passes the plain version).
+    hybrid family's attention layers, and a dense config with ``window``,
+    write their rings at ``idx % capacity``; the ssm family's WKV step runs
+    through ``wkv`` (the kernels' dispatch unless the caller passes the
+    plain version).
     """
     require_ported(cfg)
     B = tokens.shape[0]
@@ -529,7 +537,8 @@ def decode_step(cfg: ModelConfig, params: Params, tokens, cache, *,
             lp = layer_params(params["layers"], i)
             hn = apply_norm(cfg, lp["norm1"], x)
             x = x + decode_self_attention(
-                cfg, lp["attn"], hn, {"k": kv["k"][i], "v": kv["v"][i]}, idx)
+                cfg, lp["attn"], hn, {"k": kv["k"][i], "v": kv["v"][i]}, idx,
+                window=cfg.window)
             x = x + mlp(cfg, lp["mlp"], apply_norm(cfg, lp["norm2"], x))
         new_cache = {"kv": kv}
     x = apply_norm(cfg, params["final_norm"], x)

@@ -9,9 +9,10 @@ block_size)`` blocks.
 
 The device-side ops (:func:`write_prefill`, :func:`tail_targets`,
 :func:`tail_targets_multi`, :func:`scatter_tokens` — defined beside the
-verify step in :mod:`repro_torch.models.paged` —, :func:`copy_block`) are
-PyTorch and write the pool in place where the JAX package returns a new
-one. The continuous mode and the speculative draft keep a dense *slot
+verify step in :mod:`repro_torch.models.paged` —, :func:`copy_block`, and
+the ``kv_impl="reference"`` read path's :func:`gather_pages`,
+:func:`slice_token` and :func:`scatter_token`) are PyTorch and write the
+pool in place where the JAX package returns a new one. The continuous mode and the speculative draft keep a dense *slot
 layout* instead (:func:`init_slot_cache`, :func:`write_slot`,
 :func:`gather_slot`): every slot reserves a whole cache of the model's own
 tree (dense k/v ``[L, max_batch, capacity, Hkv, Dh]``; the hybrid family's
@@ -59,6 +60,45 @@ def write_prefill(pool_data, request_cache, table, *, block_size: int):
         pages = x.reshape(x.shape[0] // block_size, block_size, *x.shape[1:])
         pool = pool_data["kv"][name]
         pool[t] = pages.to(pool.dtype)
+    return pool_data
+
+
+def gather_pages(pool_data, table):
+    """One slot's logical dense cache, batch-1 layout without ``idx``
+    (``{"kv": {"k", "v"}}`` leaves ``[L, 1, n_pages * block_size, Hkv,
+    Dh]``), gathered from the pool through its ``[n_pages]`` block table: a
+    copy. Pages mapped to trash carry garbage, which the decode's
+    ``kv_len`` rule masks out of every read."""
+    t = torch.as_tensor(table, device=pool_data["kv"]["k"].device).long()
+
+    def one(pool):
+        pages = pool[t]                            # [n_pages, bs, L, Hkv, Dh]
+        x = pages.reshape(-1, *pages.shape[2:])    # [S, L, Hkv, Dh]
+        return x.movedim(0, 1)[:, None]            # [L, 1, S, Hkv, Dh]
+
+    return {"kv": {name: one(pool) for name, pool in pool_data["kv"].items()}}
+
+
+def slice_token(cache, pos):
+    """The K/V written at position ``pos`` of a batch-1 dense cache: leaves
+    ``[L, Hkv, Dh]``, what :func:`scatter_token` appends to the slot's tail
+    block. ``pos`` is clamped into the cache, as the JAX package's
+    ``dynamic_slice`` clamps it (a dead slot's position runs past it)."""
+    def one(leaf):
+        p = torch.as_tensor(pos, device=leaf.device).long().reshape(1)
+        return leaf[:, 0].index_select(1, p.clamp(0, leaf.shape[2] - 1))[:, 0]
+
+    return {"kv": {name: one(leaf) for name, leaf in cache["kv"].items()}}
+
+
+def scatter_token(pool_data, writes, blk, off):
+    """Write one token's K/V for every slot at ``(blk[i], off[i])``, in
+    place. ``writes`` leaves are ``[B, L, Hkv, Dh]``; ``blk`` is already
+    routed to the trash block for dead slots, so distinct live slots always
+    target distinct blocks."""
+    blk, off = blk.long(), off.long()
+    for name, pool in pool_data["kv"].items():
+        pool[blk, off] = writes["kv"][name].to(pool.dtype)
     return pool_data
 
 

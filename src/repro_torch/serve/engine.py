@@ -1,19 +1,33 @@
-"""Serving engine: paged KV over the block-native decode path, and
-slot-based continuous batching.
+"""Serving engine: paged KV over the block-native decode path, slot-based
+continuous batching, and the legacy cohort drain.
 
-The counterpart of ``repro.serve.engine.ServeEngine`` in two of its modes.
+The counterpart of ``repro.serve.engine.ServeEngine`` for the families the
+port runs, with every argument of its constructor.
 
-``mode="paged"`` with ``kv_impl="kernel"``: a
-:class:`~repro_torch.serve.batch.BlockPool`
+``mode="paged"``: a :class:`~repro_torch.serve.batch.BlockPool`
 owns the physical ``[num_blocks + 1, block_size, L, Hkv, Dh]`` KV pools;
 each request holds only the blocks its tokens occupy, mapped through a
 per-slot block table. Admission is gated on *free blocks*, not on slot
 count; when a decode chunk would exhaust the pool, the youngest request is
 preempted back to the queue front and restarts later (greedy decode
 regenerates its stream). Prefill writes straight into freshly allocated
-blocks; decode appends each token to its slot's tail block and attends
-through the block table with the CUDA paged-attention kernel
-(:func:`repro_torch.kernels.paged_attention`). With ``share_prefix=True``
+blocks. ``kv_impl`` picks the decode's read path:
+
+* ``"kernel"`` appends each token to its slot's tail block and attends
+  through the block table with the CUDA paged-attention kernel
+  (:func:`repro_torch.kernels.paged_attention`; its plain version for CPU
+  tensors, which only a caller that asked for ``device="cpu"`` hands it).
+  ``"pallas"`` is the same path: the port's counterpart of the Pallas
+  kernel is the CUDA kernel. ``"auto"`` resolves to ``"kernel"`` on every
+  device. This departs from the JAX package, whose ``"auto"`` takes the
+  reference path off the TPU because its kernel runs only there; the port's
+  kernel runs on its own card, and no path falls back from it.
+* ``"reference"``, only when asked for, gathers each slot's dense cache
+  from the pool, runs the unmodified ``decode_step`` and scatters the
+  token's K/V back (:func:`~repro_torch.serve.steps.make_paged_decode`):
+  plain PyTorch, the serial computation.
+
+With ``share_prefix=True``
 (default) a :class:`~repro_torch.serve.batch.PrefixIndex` aliases common
 prompt prefixes to the blocks that already hold them: prefix K/V is written
 once, admission counts resident shared blocks as zero additional need, an
@@ -25,8 +39,12 @@ chunk runs speculative rounds instead (:mod:`repro_torch.serve.spec`): a
 dense draft with its own slot-layout cache, prefilled at every admission,
 proposes ``k`` tokens, the target verifies the ``k + 1``-token window
 through the block table with the CUDA kernel
-:func:`repro_torch.kernels.paged_attention_multi`, and after each chunk the
-blocks past every slot's accepted length are trimmed back to the pool.
+:func:`repro_torch.kernels.paged_attention_multi` (its plain version under
+``kv_impl="reference"``), and after each chunk the blocks past every slot's
+accepted length are trimmed back to the pool. The kernel takes a window of
+at most 8 rows, and at most 64 rows over the query heads of one KV head;
+the engine refuses a ``SpecConfig`` past that at construction, where the
+JAX engine accepts it (``ROADMAP.md``, queue 3).
 
 ``mode="continuous"`` (the default, as in the JAX package): a
 :class:`~repro_torch.serve.scheduler.SlotScheduler`
@@ -43,12 +61,29 @@ CUDA flash-attention and RG-LRU kernels, and the ssm family
 (:mod:`repro_torch.kernels.ops`); paged mode refuses both, as the JAX
 package's does.
 
-``run()`` drains the queue to ``{rid: tokens}``; ``stream()`` yields
-``(rid, delta_tokens, done)`` at admission and at every chunk boundary.
+``mode="cohort"``: the legacy fixed-cohort drain, kept as it is in the
+JAX package, as the baseline that its ``benchmarks/serve_bench.py``
+measures the other modes against: ``max_batch`` queued requests at a time,
+their prompts left-padded with token 0 into one batch prefill (the pads
+are attended, with no mask), then one decode step per token for the whole
+cohort; every request's first-token and finish times are the cohort's.
+Its streams are the JAX cohort drain's, not serial decode's.
 
-Not ported yet (``ROADMAP.md``): the cohort mode, the ``"reference"`` and
-``"pallas"`` read paths and pow2 prefill buckets. Asking for them raises
-``NotImplementedError``.
+``prefill_bucket=True`` pads admission prefills (continuous, paged and the
+speculative draft's) to a power-of-two length on dense full-attention
+configs only: right pads are causally masked, so the logits move only by
+the order of sums.
+
+A live ``recorder`` (:class:`repro_torch.obs.Recorder`) gets the JAX
+engine's metrics under its names: counters, spans and instants at the
+chunk boundaries, per-request ``serve_ttft_s``, ``serve_latency_s`` and
+``serve_itl_s`` with a ``request_done`` event, boundary gauges and the
+drain's ``serve_<stat>`` gauges with a ``drain_done`` event. It is host-side
+only, so streams are the same with obs on and off.
+
+``run()`` drains the queue to ``{rid: tokens}``; ``stream()`` yields
+``(rid, delta_tokens, done)`` at admission and at every chunk boundary
+(paged and continuous modes).
 """
 from __future__ import annotations
 
@@ -58,6 +93,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.paged_attention_multi import MAX_ROWS, MAX_WINDOW
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import compute_params, require_ported
 from repro_torch.obs.recorder import NullRecorder
@@ -65,13 +101,13 @@ from repro_torch.serve.batch import (BlockPool, PrefixIndex, copy_block,
                                      init_slot_cache, write_prefill,
                                      write_slot)
 from repro_torch.serve.scheduler import Request, SlotScheduler
-from repro_torch.serve.spec import SpecConfig, make_spec_decode
-from repro_torch.serve.steps import (make_fused_decode,
+from repro_torch.serve.spec import KV_IMPLS, SpecConfig, make_spec_decode
+from repro_torch.serve.steps import (make_decode_step, make_fused_decode,
+                                     make_paged_decode,
                                      make_paged_kernel_decode,
                                      make_prefill_step)
 
 PAGED_FAMILIES = ("dense", "vlm", "moe")
-KV_IMPLS = ("auto", "kernel")
 
 
 def _check_draft(cfg: ModelConfig, dcfg: ModelConfig) -> None:
@@ -93,12 +129,28 @@ def _check_draft(cfg: ModelConfig, dcfg: ModelConfig) -> None:
     require_ported(dcfg)
 
 
+def _check_verify_window(cfg: ModelConfig, k: int) -> None:
+    """The CUDA verify kernel's limit, checked where the engine is built
+    rather than at the first verify: one thread block owns the window's Q
+    rows of every query head of a KV head. The JAX package's kernel has no
+    such limit (``ROADMAP.md``, queue 3)."""
+    Q, G = k + 1, cfg.n_heads // cfg.n_kv_heads
+    if Q > MAX_WINDOW or Q * G > MAX_ROWS:
+        raise ValueError(
+            f"speculate k={k}: the verify window holds {Q} rows x {G} query "
+            f"heads per KV head = {Q * G} rows, and the port's CUDA kernel "
+            f"paged_attention_multi takes at most {MAX_WINDOW} rows and "
+            f"{MAX_ROWS} rows x heads (ROADMAP.md, queue 3); "
+            "kv_impl='reference' verifies through the plain version")
+
+
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, capacity: int = 256,
                  max_batch: int = 8, eos_id: int | None = None,
                  mode: str = "continuous", decode_chunk: int = 8,
-                 block_size: int = 16, num_blocks: int | None = None,
-                 kv_impl: str = "auto", share_prefix: bool = True,
+                 prefill_bucket: bool = False, block_size: int = 16,
+                 num_blocks: int | None = None, kv_impl: str = "auto",
+                 share_prefix: bool = True,
                  speculate: SpecConfig | None = None, recorder=None,
                  device: str | torch.device = "cuda"):
         if mode not in ("continuous", "cohort", "paged"):
@@ -106,10 +158,6 @@ class ServeEngine:
                 f"mode must be continuous|cohort|paged, got {mode!r}")
         if speculate is not None and mode != "paged":
             raise ValueError("speculate=SpecConfig(...) requires mode='paged'")
-        if mode == "cohort":
-            raise NotImplementedError(
-                "mode='cohort': the port serves the paged and continuous "
-                "modes (ROADMAP.md, queue 1, serving gaps)")
         if mode == "paged":
             if cfg.family not in PAGED_FAMILIES or cfg.window is not None:
                 raise ValueError(
@@ -117,25 +165,34 @@ class ServeEngine:
                     f"(one of {PAGED_FAMILIES}, window=None); got "
                     f"family={cfg.family!r} window={cfg.window!r}")
             if kv_impl not in KV_IMPLS:
-                raise NotImplementedError(
-                    f"kv_impl={kv_impl!r}: the port has the 'kernel' read "
-                    "path only, which 'auto' resolves to (ROADMAP.md, queue "
-                    "1, serving gaps)")
+                raise ValueError(
+                    f"kv_impl must be one of {KV_IMPLS}, got {kv_impl!r}")
         require_ported(cfg)
         if speculate is not None:
             _check_draft(cfg, speculate.draft_cfg)
+            if kv_impl != "reference":
+                _check_verify_window(cfg, speculate.k)
         self.device = resolve_device(device)
-        # host-side only: the recorder sees counters and spans at the chunk
-        # boundaries the loop already crosses. Only the no-op recorder is
-        # ported so far (ROADMAP.md, queue 1, serving gaps: obs).
+        # host-side only: the recorder sees counters, spans and request
+        # times at the chunk boundaries the loop already crosses and never
+        # touches the device computation, so streams are the same with obs
+        # on or off
         self.recorder = NullRecorder() if recorder is None else recorder
         self.cfg = cfg
         self.params = compute_params(cfg, params, self.device)
         self.capacity, self.max_batch = capacity, max_batch
         self.eos_id, self.mode, self.decode_chunk = eos_id, mode, decode_chunk
         self.block_size = block_size
+        # pad admission prefills to power-of-two lengths. Right pads are
+        # causally masked, so this is exact up to the order of sums (not
+        # bitwise). Recurrent state and ring caches would absorb the pads,
+        # so only dense full-attention configs bucket (a speculative draft
+        # is one: ``_check_draft``).
+        self._bucket = (prefill_bucket and cfg.family == "dense"
+                        and cfg.window is None)
         self.scheduler = SlotScheduler(max_batch)
         self._prefill = make_prefill_step(cfg, capacity)
+        self._decode = make_decode_step(cfg)   # the cohort drain's step
         self.pool: BlockPool | None = None
         self.kv_impl: str | None = None   # the paged read path
         self.prefix: PrefixIndex | None = None
@@ -147,8 +204,9 @@ class ServeEngine:
         self.completed: dict[int, Request] = {}
         if mode == "continuous":
             self._fused_decode = make_fused_decode(cfg, decode_chunk, eos_id)
+        if mode != "paged":
             return
-        self.kv_impl = "kernel"
+        self.kv_impl = "kernel" if kv_impl == "auto" else kv_impl
         if num_blocks is None:
             # the KV memory a dense engine of this max_batch/capacity would
             # reserve up front
@@ -156,8 +214,9 @@ class ServeEngine:
         self.pool = BlockPool(cfg, num_blocks=num_blocks,
                               block_size=block_size, max_batch=max_batch,
                               capacity=capacity, device=self.device)
-        self._paged_decode = make_paged_kernel_decode(
-            cfg, block_size, decode_chunk, eos_id)
+        make_step = (make_paged_decode if self.kv_impl == "reference"
+                     else make_paged_kernel_decode)
+        self._paged_decode = make_step(cfg, block_size, decode_chunk, eos_id)
         # positions one dispatch can advance a slot: decode_chunk serially,
         # or rounds x (k + 1) verify rows under speculation. Emitted rows
         # only ever read positions below idx + adv, so this is also the
@@ -171,7 +230,8 @@ class ServeEngine:
                                                 self.device)
             self._draft_prefill = make_prefill_step(dcfg, capacity)
             self._spec_decode = make_spec_decode(
-                cfg, dcfg, block_size, speculate.k, rounds, eos_id)
+                cfg, dcfg, block_size, speculate.k, rounds, eos_id,
+                impl=self.kv_impl)
         self.prefix = PrefixIndex(self.pool.alloc) if share_prefix else None
 
     # -- request intake ------------------------------------------------------
@@ -198,7 +258,71 @@ class ServeEngine:
                               budget=max_new_tokens)
         return rid
 
+    def _record_done(self, req: Request) -> None:
+        """Per-request latency accounting at completion: TTFT, end-to-end
+        latency, mean inter-token gap, and a ``request_done`` event keyed by
+        rid."""
+        rec = self.recorder
+        if not rec.enabled:
+            return
+        ttft = (req.first_token_s - req.submit_s) if req.first_token_s else 0.0
+        latency = (req.finish_s - req.submit_s) if req.finish_s else 0.0
+        rec.counter_add("serve_finished")
+        rec.observe("serve_ttft_s", ttft)
+        rec.observe("serve_latency_s", latency)
+        if req.first_token_s and req.finish_s and len(req.output) > 1:
+            rec.observe("serve_itl_s", (req.finish_s - req.first_token_s)
+                        / (len(req.output) - 1))
+        rec.event("request_done", rid=req.rid, ttft_s=ttft,
+                  latency_s=latency, tokens=len(req.output))
+
+    def _boundary_gauges(self, stats: dict) -> None:
+        """Chunk-boundary gauges: queue depth, concurrency, pool occupancy."""
+        rec = self.recorder
+        if not rec.enabled:
+            return
+        rec.gauge_set("serve_queue_depth", len(self.scheduler.queue))
+        rec.gauge_set("serve_concurrency", len(self.scheduler.occupied()))
+        if self.pool is not None:
+            rec.gauge_set("serve_free_blocks", self.pool.free_blocks)
+            rec.gauge_set("serve_block_occupancy",
+                          1.0 - self.pool.free_blocks / self.pool.num_blocks)
+
+    def _export_stats(self, stats: dict, elapsed_s: float) -> None:
+        """Mirror the drain's stats into the recorder (``serve_`` prefix),
+        with the realised tokens/s of the whole drain."""
+        rec = self.recorder
+        if not rec.enabled:
+            return
+        for k, v in stats.items():
+            rec.gauge_set(f"serve_{k}", v)
+        tps = stats.get("emitted_tokens", 0) / max(elapsed_s, 1e-9)
+        rec.gauge_set("serve_tokens_per_sec", tps)
+        rec.event("drain_done", elapsed_s=elapsed_s, tokens_per_sec=tps,
+                  **stats)
+        rec.flush()
+
     # -- shared helpers ------------------------------------------------------
+
+    def _admission_batch(self, req: Request) -> dict:
+        """Prefill inputs for one admitted request: exact length, or
+        right-padded to a power-of-two bucket (at least 8, at most
+        ``capacity``) with its true ``length`` when ``prefill_bucket`` is
+        on. Shared by the continuous and paged prefills and the speculative
+        draft's."""
+        L = len(req.prompt)
+        toks, length = req.prompt, None
+        if self._bucket:
+            pad_to = min(max(8, 1 << max(L - 1, 1).bit_length()),
+                         self.capacity)
+            if L < pad_to:
+                toks = np.zeros(pad_to, np.int32)
+                toks[:L] = req.prompt
+                length = L
+        batch = {"tokens": torch.as_tensor(toks[None], device=self.device)}
+        if length is not None:
+            batch["length"] = length
+        return batch
 
     def _emit(self, reqs):
         """Yield the not-yet-streamed suffix of each request's output.
@@ -214,12 +338,12 @@ class ServeEngine:
                 yield req.rid, list(delta), req.done
 
     def _prefill_first_token(self, req: Request):
-        """Run the exact-length admission prefill; returns (first_token,
-        request cache)."""
+        """Run the admission prefill; returns (first_token, request
+        cache)."""
         with self.recorder.span("prefill", rid=req.rid,
                                 prompt_len=len(req.prompt)):
-            tokens = torch.as_tensor(req.prompt[None], device=self.device)
-            logits, req_cache = self._prefill(self.params, {"tokens": tokens})
+            logits, req_cache = self._prefill(self.params,
+                                              self._admission_batch(req))
             first = int(torch.argmax(logits[0, -1]))
         if not req.first_token_s:
             req.first_token_s = time.perf_counter()
@@ -255,14 +379,16 @@ class ServeEngine:
             live[i] = False
             remaining[i] = 0
             self.completed[req.rid] = req
-            self.recorder.counter_add("serve_finished")
+            self._record_done(req)
             return req
 
+        t0 = time.perf_counter()
         try:
             yield from self._continuous_loop(cache, tok, live, remaining,
                                              stats, finish)
         finally:
             self.stats = stats
+            self._export_stats(stats, time.perf_counter() - t0)
             self._evict_in_flight()
 
     def _continuous_loop(self, cache, tok, live, remaining, stats, finish):
@@ -282,6 +408,7 @@ class ServeEngine:
                 yield from self._emit([req])
             stats["peak_concurrency"] = max(stats["peak_concurrency"],
                                             len(sched.occupied()))
+            self._boundary_gauges(stats)
             if not live.any():
                 continue   # the queue may still hold work
             with self.recorder.span("decode_chunk", steps=self.decode_chunk):
@@ -337,7 +464,7 @@ class ServeEngine:
             live[i] = False
             remaining[i] = 0
             self.completed[req.rid] = req
-            self.recorder.counter_add("serve_finished")
+            self._record_done(req)
             return req
 
         def preempt(i: int) -> None:
@@ -350,11 +477,13 @@ class ServeEngine:
             self.recorder.instant("preempt", rid=req.rid,
                                   regenerated=len(req.output))
 
+        t0 = time.perf_counter()
         try:
             yield from self._paged_loop(tok, idx, live, remaining, stats,
                                         finish, preempt)
         finally:
             self.stats = stats
+            self._export_stats(stats, time.perf_counter() - t0)
             self._evict_in_flight()
 
     def _admission_need(self, req: Request) -> int:
@@ -445,10 +574,9 @@ class ServeEngine:
                 # preemption restart rebuilds it the same way
                 with self.recorder.span("draft_prefill", rid=req.rid,
                                         prompt_len=len(req.prompt)):
-                    tokens = torch.as_tensor(req.prompt[None],
-                                             device=self.device)
-                    _, d_cache = self._draft_prefill(self._draft_params,
-                                                     {"tokens": tokens})
+                    _, d_cache = self._draft_prefill(
+                        self._draft_params,
+                        self._admission_batch(req))
                     write_slot(self._dcache, d_cache, i)
                 stats["draft_prefills"] += 1
             yield from self._emit([req])
@@ -502,6 +630,7 @@ class ServeEngine:
             self._ensure_chunk_blocks(stats, preempt, idx, live, remaining)
             stats["peak_shared_blocks"] = max(stats["peak_shared_blocks"],
                                               pool.shared_blocks())
+            self._boundary_gauges(stats)
             if not live.any():
                 continue
             # length clamp: hand the device only the first `hw` table
@@ -563,6 +692,59 @@ class ServeEngine:
                     pool.trim(i, int(idx[i]))
             yield from self._emit(reqs)
 
+    # -- cohort drain (legacy baseline) --------------------------------------
+
+    def _pad_batch(self, reqs: list[Request]):
+        S = max(len(r.prompt) for r in reqs)
+        toks = np.zeros((len(reqs), S), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, S - len(r.prompt):] = r.prompt   # left-pad
+        return torch.as_tensor(toks, device=self.device)
+
+    def _run_cohort(self) -> dict[int, list[int]]:
+        results: dict[int, list[int]] = {}
+        sched = self.scheduler
+        stats = {"prefills": 0, "decode_dispatches": 0, "decode_steps": 0,
+                 "emitted_tokens": 0, "peak_concurrency": 0}
+        t0 = time.perf_counter()
+        while sched.queue:
+            reqs = [sched.queue.popleft()
+                    for _ in range(min(self.max_batch, len(sched.queue)))]
+            sched.n_admitted += len(reqs)   # cohorts bypass the slot table
+            stats["peak_concurrency"] = max(stats["peak_concurrency"],
+                                            len(reqs))
+            logits, cache = self._prefill(self.params,
+                                          {"tokens": self._pad_batch(reqs)})
+            stats["prefills"] += 1
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            now = time.perf_counter()
+            for r, t in zip(reqs, tok[:, 0].tolist()):
+                r.first_token_s = now
+                r.add_token(t, self.eos_id)
+                stats["emitted_tokens"] += 1
+            steps = max(r.max_new_tokens for r in reqs) - 1
+            for _ in range(max(steps, 0)):
+                if all(r.done for r in reqs):
+                    break   # every request finished: no more decode steps
+                tok, _, cache = self._decode(self.params, tok, cache)
+                stats["decode_dispatches"] += 1
+                stats["decode_steps"] += 1
+                host = tok[:, 0].tolist()
+                for i, r in enumerate(reqs):
+                    if not r.done:
+                        r.add_token(host[i], self.eos_id)
+                        stats["emitted_tokens"] += 1
+            now = time.perf_counter()
+            for r in reqs:
+                r.finish_s = now
+                results[r.rid] = r.output
+                self.completed[r.rid] = r
+                self._record_done(r)
+            sched.n_finished += len(reqs)
+        self.stats = stats
+        self._export_stats(stats, time.perf_counter() - t0)
+        return results
+
     # -- entry points --------------------------------------------------------
 
     def stream(self):
@@ -574,7 +756,10 @@ class ServeEngine:
         final delta. Preempted requests never re-yield tokens that were
         already streamed. Abandoning the generator mid-drain evicts the
         in-flight requests back to the queue; a later ``run()``/``stream()``
-        resumes where it stopped."""
+        resumes where it stopped. The cohort drain has no chunk boundaries
+        to stream at."""
+        if self.mode == "cohort":
+            raise ValueError("stream() requires mode='continuous'|'paged'")
         if self.mode == "continuous":
             yield from self._stream_continuous()
         else:
@@ -582,6 +767,8 @@ class ServeEngine:
 
     def run(self) -> dict[int, list[int]]:
         """Drain the queue; returns {rid: generated tokens}."""
+        if self.mode == "cohort":
+            return self._run_cohort()
         results: dict[int, list[int]] = {}
         for rid, delta, _done in self.stream():
             results.setdefault(rid, []).extend(delta)

@@ -39,6 +39,7 @@ from typing import Any
 import torch
 
 from repro_torch.kernels import paged_attention_multi
+from repro_torch.kernels.ref import paged_attention_multi_ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.paged import paged_verify_step
 from repro_torch.serve.batch import tail_targets_multi
@@ -53,26 +54,40 @@ class SpecConfig:
     the target's own first layers (:func:`repro_torch.weights.
     truncate_params`), or the target itself (acceptance 1).
     k: draft tokens proposed per round (the verify window is ``k + 1``).
+    rounds: speculative rounds per dispatch; the default covers at least
+    ``decode_chunk`` positions (``ceil(decode_chunk / (k + 1))``).
     """
     draft_cfg: ModelConfig
     draft_params: Any
     k: int = 3
+    rounds: int | None = None
 
     def __post_init__(self):
         if self.k < 1:
             raise ValueError(f"speculation needs k >= 1, got {self.k}")
 
     def rounds_for(self, decode_chunk: int) -> int:
-        """Rounds per dispatch: enough to cover ``decode_chunk`` positions
-        (``ceil(decode_chunk / (k + 1))``)."""
+        if self.rounds is not None:
+            return max(1, self.rounds)
         return max(1, -(-decode_chunk // (self.k + 1)))
+
+
+# the engine's kv_impl choices, which pick the verify attention too
+KV_IMPLS = ("auto", "kernel", "pallas", "reference")
 
 
 def make_spec_decode(cfg: ModelConfig, draft_cfg: ModelConfig,
                      block_size: int, k: int, rounds: int,
-                     eos_id: int | None):
+                     eos_id: int | None, *, impl: str = "auto"):
     """The speculative decode chunk: ``rounds`` propose -> verify -> accept
     rounds per call.
+
+    ``impl`` selects the verify attention: ``"reference"`` the plain
+    version (:func:`repro_torch.kernels.paged_attention_multi_ref`), as the
+    JAX package verifies through its gather oracle; ``"auto"``,
+    ``"kernel"`` and ``"pallas"`` the CUDA kernel
+    (:func:`repro_torch.kernels.paged_attention_multi`, whose CPU tensors
+    take the plain version).
 
     Signature: ``(params, draft_params, tok [B], pool_data,
     tables [B, n_pages], idx [B], live [B], remaining [B], draft_cache) ->
@@ -83,6 +98,10 @@ def make_spec_decode(cfg: ModelConfig, draft_cfg: ModelConfig,
     ``proposed``/``accepted`` are per-round draft counts. The pool and the
     draft cache are updated in place.
     """
+    if impl not in KV_IMPLS:
+        raise ValueError(f"impl must be one of {KV_IMPLS}, got {impl!r}")
+    attend = (paged_attention_multi_ref if impl == "reference"
+              else paged_attention_multi)
     draft_step = make_slot_decode_step(draft_cfg)
     Q = k + 1
 
@@ -115,7 +134,7 @@ def make_spec_decode(cfg: ModelConfig, draft_cfg: ModelConfig,
             lengths = torch.where(live, idx + Q, 0).to(torch.int32)
             logits, pool_kv = paged_verify_step(
                 cfg, params, qtoks, pool_kv, tables, blks, offs, pos,
-                lengths, attend=paged_attention_multi)
+                lengths, attend=attend)
             targets = torch.argmax(logits, dim=-1).to(torch.int32)
 
             # 3. longest-prefix acceptance (+ the bonus row a)

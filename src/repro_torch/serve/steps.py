@@ -1,9 +1,10 @@
 """Serving step functions: prefill, single-token decode, the slot decode
 step and its fused chunk (continuous batching and the speculative draft),
-and the paged decode chunk.
+and the paged decode chunk over either read path.
 
-:func:`make_fused_decode` and :func:`make_paged_kernel_decode` are the
-counterparts of the JAX package's functions of those names:
+:func:`make_fused_decode`, :func:`make_paged_decode` and
+:func:`make_paged_kernel_decode` are the counterparts of the JAX package's
+functions of those names:
 ``decode_chunk`` greedy tokens for every slot per call, with EOS and budget
 masking applied on the device so finished slots stop emitting without a
 host round trip per token. The JAX package fuses the chunk into one
@@ -24,7 +25,8 @@ from repro_torch.kernels import paged_attention
 from repro_torch.models import decode_step, prefill
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.paged import paged_decode_step
-from repro_torch.serve.batch import tail_targets
+from repro_torch.serve.batch import (gather_pages, scatter_token,
+                                     slice_token, tail_targets)
 
 
 def make_prefill_step(cfg: ModelConfig, capacity: int):
@@ -58,6 +60,17 @@ def make_slot_decode_step(cfg: ModelConfig):
     return step
 
 
+def _advance(next_tok, tok, live, remaining, eos_id):
+    """One step's emit/EOS/budget masking, as every decode chunk applies
+    it: ``(emit, tok, live, remaining)``."""
+    emit = live
+    remaining = torch.where(emit, remaining - 1, remaining)
+    live = live & (remaining > 0)
+    if eos_id is not None:
+        live = live & ~(emit & (next_tok == eos_id))
+    return emit, torch.where(emit, next_tok, tok), live, remaining
+
+
 def make_fused_decode(cfg: ModelConfig, decode_chunk: int,
                       eos_id: int | None):
     """Continuous-batching decode: ``decode_chunk`` greedy tokens for every
@@ -78,15 +91,56 @@ def make_fused_decode(cfg: ModelConfig, decode_chunk: int,
         tokens, emitted = [], []
         for _ in range(decode_chunk):
             next_tok, cache = slot_step(params, tok, cache)
-            emit = live
-            remaining = torch.where(emit, remaining - 1, remaining)
-            live = live & (remaining > 0)
-            if eos_id is not None:
-                live = live & ~(emit & (next_tok == eos_id))
-            tok = torch.where(emit, next_tok, tok)
+            emit, tok, live, remaining = _advance(next_tok, tok, live,
+                                                  remaining, eos_id)
             tokens.append(next_tok)
             emitted.append(emit)
         return (tok, cache, live, remaining, torch.stack(tokens),
+                torch.stack(emitted))
+
+    return chunk
+
+
+def make_paged_decode(cfg: ModelConfig, block_size: int, decode_chunk: int,
+                      eos_id: int | None):
+    """Paged decode over the ``kv_impl="reference"`` read path: the same
+    signature and emit/EOS/budget masking as
+    :func:`make_paged_kernel_decode`.
+
+    Per step, each slot gathers its logical dense cache from the pool
+    through its block table (:func:`~repro_torch.serve.batch.gather_pages`,
+    as wide as the tables the engine hands over), runs the unmodified
+    :func:`repro_torch.models.decode_step` on it at batch 1 — so the
+    arithmetic is the serial single-request computation's — and hands back
+    the token's K/V (:func:`~repro_torch.serve.batch.slice_token`). Every
+    slot reads the pool as it was before the step; then one
+    :func:`~repro_torch.serve.batch.scatter_token` appends all slots' K/V to
+    their tail blocks, dead slots into the trash block. The JAX package
+    vmaps the per-slot step; here it is a loop over the slots. Plain
+    PyTorch throughout: no kernel is on this path.
+    """
+    def chunk(params, tok, pool_data, tables, idx, live, remaining):
+        trash = pool_data["kv"]["k"].shape[0] - 1
+        tokens, emitted = [], []
+        for _ in range(decode_chunk):
+            nexts, writes = [], []
+            for i in range(tok.shape[0]):
+                dense = gather_pages(pool_data, tables[i])
+                logits, new = decode_step(cfg, params, tok[i].reshape(1, 1),
+                                          {**dense, "idx": idx[i]})
+                nexts.append(torch.argmax(logits[0, -1]).to(torch.int32))
+                writes.append(slice_token(new, idx[i]))
+            blk, off = tail_targets(tables, idx, live, block_size, trash)
+            scatter_token(pool_data, {"kv": {
+                name: torch.stack([w["kv"][name] for w in writes])
+                for name in ("k", "v")}}, blk, off)
+            next_tok = torch.stack(nexts)
+            emit, tok, live, remaining = _advance(next_tok, tok, live,
+                                                  remaining, eos_id)
+            idx = idx + 1
+            tokens.append(next_tok)
+            emitted.append(emit)
+        return (tok, pool_data, idx, live, remaining, torch.stack(tokens),
                 torch.stack(emitted))
 
     return chunk
@@ -119,12 +173,8 @@ def make_paged_kernel_decode(cfg: ModelConfig, block_size: int,
                 cfg, params, tok, pool_kv, tables, blk, off, idx, lengths,
                 attend=paged_attention)
             next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-            emit = live
-            remaining = torch.where(emit, remaining - 1, remaining)
-            live = live & (remaining > 0)
-            if eos_id is not None:
-                live = live & ~(emit & (next_tok == eos_id))
-            tok = torch.where(emit, next_tok, tok)
+            emit, tok, live, remaining = _advance(next_tok, tok, live,
+                                                  remaining, eos_id)
             idx = idx + 1
             tokens.append(next_tok)
             emitted.append(emit)

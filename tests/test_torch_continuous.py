@@ -141,9 +141,12 @@ def test_stream_deltas_and_unported_modes(model):
         if done:
             dones.add(rid)
     assert dones == set(rids) and [len(seen[r]) for r in rids] == [5, 3, 4]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        repro_torch.serve.ServeEngine(tcfg, tparams, mode="cohort",
-                                      device="cpu")
+    # the cohort drain is ported (tests/test_torch_serve_modes.py) and has
+    # no chunk boundaries to stream at, as in the JAX engine
+    cohort = repro_torch.serve.ServeEngine(tcfg, tparams, mode="cohort",
+                                           device="cpu")
+    with pytest.raises(ValueError, match="stream"):
+        next(cohort.stream())
     with pytest.raises(ValueError, match="mode must be"):
         repro_torch.serve.ServeEngine(tcfg, tparams, mode="nope",
                                       device="cpu")

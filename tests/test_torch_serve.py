@@ -240,8 +240,14 @@ def test_stream_deltas_and_unported_options(model):
     assert dones == set(rids) and [len(seen[r]) for r in rids] == [5, 3]
     with pytest.raises(ValueError, match="cache positions"):
         eng.submit(np.arange(30), 5)
-    for kw in ({"mode": "cohort"}, {"kv_impl": "reference"},
-               {"kv_impl": "pallas"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            repro_torch.serve.ServeEngine(tcfg, tparams, device="cpu",
-                                          **{"mode": "paged", **kw})
+    # the options ported since (tests/test_torch_serve_modes.py holds
+    # them to the JAX engine) build; an unknown read path does not
+    for kw, kv_impl in (({"mode": "cohort"}, None),
+                        ({"kv_impl": "reference"}, "reference"),
+                        ({"kv_impl": "pallas"}, "pallas")):
+        other = repro_torch.serve.ServeEngine(tcfg, tparams, device="cpu",
+                                              **{"mode": "paged", **kw})
+        assert other.kv_impl == kv_impl
+    with pytest.raises(ValueError, match="kv_impl must be"):
+        repro_torch.serve.ServeEngine(tcfg, tparams, device="cpu",
+                                      mode="paged", kv_impl="nope")
