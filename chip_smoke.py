@@ -154,6 +154,36 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    continuous drain with prefill buckets. Every drain's launches are
    checked and its streams replayed teacher-forced; the kernel rows print
    as one ``[15 rows]`` JSON line.
+16. the moe, vlm and audio families of the ninth slice at their published
+   widths (random bf16 weights from seed 0), the depth cut only where one
+   80 GB card forces it and printed beside each config: phi3.5-moe 8 of 32
+   layers, grok-1 2 of 64, chameleon-34b 16 of 48, whisper-tiny whole. First
+   the kernels at the shapes these configs hand them, each against its
+   plain version and timed: flash attention at whisper's encoder (1 500
+   frames, full) and cross-attention (300 x 1 500, full), at phi's prefill
+   (32 heads over 8 of 128) and chameleon's (64 over 8, 1 300 tokens), with
+   the library yardstick; paged decode at phi's and chameleon's heads, and
+   chameleon's verify window at k 8 (Q 9 x G 8 = 72 rows, two of the
+   repaired kernel's row tiles). (a) phi3.5-moe on phase 15's 8 requests,
+   ``max_new`` 16, 4 slots: continuous (against the drain one request at a
+   time), paged on the kernel and the reference read paths (no shared
+   prefixes: an MoE prefill's K/V depend on the whole prompt), speculative
+   on the damped target with its first 2 layers as the draft, k 3; every
+   per-token MoE routing of a decode step, a verify row or a draft step
+   must drop nothing (C = 4 >= K), and the count is printed. (b) grok-1, a
+   continuous drain of 4 requests, every logit within the soft-cap. (c)
+   chameleon-34b, 4 requests of 1 100-1 400 tokens (past its 1 024 image
+   positions): paged, continuous, speculative at k 8. (d) whisper-tiny, 8
+   requests: continuous (against one request at a time) and the cohort
+   drain. Every drain's launches are checked and its streams replayed
+   teacher-forced through the kernels and their plain versions, batched as
+   the engine batched them; for the moe family the plain replay takes the
+   kernel replay's routing, and every routing it would have chosen
+   otherwise must be a near-tie. phi's paged kernel engine, chameleon's and
+   whisper's continuous one each serve one more drain under the profiler
+   (phase 6's): the busy share, each kernel traced as often as counted.
+   Tokens/s, the peak memory and the weights' size print per config; the
+   kernel rows print as one ``[16 rows]`` JSON line.
 
 Prints a ``{"kernels": [...]}`` line naming all five kernels, then the
 card's name and power limit, and as its last line ``{"ok": true,
@@ -232,6 +262,15 @@ BF16_RTOL, BF16_ATOL = 2 ** -6, 1e-4
 # h, since the decays a = u**(8 r), u in [0.43, 0.85], keep the recurrence's
 # memory to a few steps.
 TOL_REPLAY = 0.25
+# An MoE routing of a replay through the plain attention that differs from
+# the kernel replay's it is pinned to (chip_smoke.pinned_routing) must be a
+# near-tie: its own experts may hold at most this much more router weight,
+# relative, than the pinned ones. Both replays' hidden states differ by a
+# few bf16 ulps (2**-8 relative each) through the layers, which moves a
+# router probability by about that much; 2**-5 is a few times it, and far
+# below the ~0.1-0.3 that separates the k-th and (k+1)-th experts of a
+# typical token.
+MOE_TIE = 2 ** -5
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak and
 # the f32 peak outside the tensor cores
@@ -356,6 +395,21 @@ GR_REQUESTS = 4
 # capacity of one window: one prompt past it, so the prefill's window
 # bites, its ring is rolled and decode wraps it
 SWA_SHAPE, SWA_CAPACITY, SWA_PROMPT, SWA_MAX_NEW = "long_500k", 4096, 4500, 8
+
+# phase 16: the moe, vlm and audio families of the ninth slice at their
+# published widths (random bf16 weights from seed 0), the depth cut only
+# where one 80 GB card forces it: phi3.5-moe 8 of 32 layers (the whole is
+# ~84 GB of bf16 weights), grok-1 2 of 64 (~630 GB whole), chameleon-34b 16
+# of 48 (~68 GB whole); whisper-tiny whole. phi serves phase 15's 8
+# requests, grok its first 4, whisper all 8 (max_new 16, 4 slots, capacity
+# 512); chameleon 4 seeded prompts of 1 100-1 400 tokens (past its 1 024
+# image positions) at capacity 1 440, speculating at k 8 (a verify window of
+# 9 x 8 = 72 rows per KV head)
+PHI_ARCH, GROK_ARCH = "phi3.5-moe-42b-a6.6b", "grok-1-314b"
+CH_ARCH, WH_ARCH = "chameleon-34b", "whisper-tiny"
+FAM_DEPTH = {PHI_ARCH: 8, GROK_ARCH: 2, CH_ARCH: 16, WH_ARCH: None}
+FAM_MAX_NEW, FAM_MAX_BATCH, GROK_REQUESTS = 16, 4, 4
+CH_REQUESTS, CH_PROMPT_LENS, CH_CAPACITY, CH_SPEC_K = 4, (1100, 1401), 1440, 8
 
 
 def card_line() -> str:
@@ -527,7 +581,10 @@ def ptxas_report(logs) -> list[str]:
                            line)
                 dtype = "bf16" if "__nv_bfloat16" in line else "f32"
                 dh = re.search(r"Li(\d+)E", line)
-                label = f"{sym}<{dtype}{', ' + dh.group(1) if dh else ''}>"
+                tiled = ", tiled" if "paged" in sym and "Lb1E" in line \
+                    else ""
+                label = (f"{sym}<{dtype}{', ' + dh.group(1) if dh else ''}"
+                         f"{tiled}>")
                 out.append(label + ":")
             elif label and ("registers" in line or "spill" in line):
                 out[-1] += " " + line.split(":", 1)[-1].strip() + ";"
@@ -666,10 +723,15 @@ def check_serve(cfg, streams, metrics):
 
 
 def replay(torch, cfg, params, prompts, streams, attend, device, *,
-           capacity=CAPACITY, max_new=MAX_NEW, prefill_attend=None):
+           capacity=CAPACITY, max_new=MAX_NEW, prefill_attend=None,
+           extras=None, widths=None):
     """Teacher-forced per-step logits [n, max_new, V] (f32): prefill
-    (through ``prefill_attend``, the flash kernel when None), then each
-    served token fed back through ``paged_decode_step`` with ``attend``."""
+    (through ``prefill_attend``, the flash kernel when None; with the
+    family's ``extras(tokens)``, the engine's ``_prefill_inputs``, when
+    given), then each served token fed back through ``paged_decode_step``
+    with ``attend``. ``widths``: the table width the engine handed each
+    decode chunk (its high-water clamp), which sets the kernel's split of
+    the positions; the whole table when None."""
     from repro_torch.kernels import ops
     from repro_torch.models import prefill
     from repro_torch.models.paged import paged_decode_step
@@ -685,9 +747,11 @@ def replay(torch, cfg, params, prompts, streams, attend, device, *,
     steps = []
     first = []
     for i, p in enumerate(prompts):
-        lg, cache = prefill(cfg, params, torch.as_tensor(p[None],
-                                                         device=device),
-                            capacity, attend=prefill_attend or ops.attention)
+        toks = torch.as_tensor(p[None], device=device)
+        kw = extras(toks) if extras else {"tokens": toks}
+        at_site([("pre", i)])
+        lg, cache = prefill(cfg, params, kw.pop("tokens"), capacity,
+                            attend=prefill_attend or ops.attention, **kw)
         write_prefill(pool, cache, tables[i], block_size=BLOCK_SIZE)
         first.append(lg[0, -1].float())
     steps.append(torch.stack(first))
@@ -697,8 +761,11 @@ def replay(torch, cfg, params, prompts, streams, attend, device, *,
     for t in range(max_new - 1):
         tok = torch.as_tensor([s[t] for s in streams], dtype=torch.int32,
                               device=device)
-        blk, off = tail_targets(tables, idx, live, BLOCK_SIZE, n * pages)
-        lg, _ = paged_decode_step(cfg, params, tok, pool["kv"], tables, blk,
+        tab = tables if widths is None else \
+            tables[:, :widths[t // DECODE_CHUNK]].contiguous()
+        blk, off = tail_targets(tab, idx, live, BLOCK_SIZE, n * pages)
+        at_site([("dec", i, t) for i in range(n)])
+        lg, _ = paged_decode_step(cfg, params, tok, pool["kv"], tab, blk,
                                   off, idx, idx + 1, attend=attend)
         steps.append(lg.float())
         idx = idx + 1
@@ -779,7 +846,7 @@ def device_records(torch, prof):
 
 
 def profile_drain(torch, eng, vocab, want_fn, tag="[6]"):
-    """Phase 6 (and 7b, 10, 11): where the time goes. One more drain (8
+    """Phase 6 (and 7b, 10, 11, 16): where the time goes. One more drain (8
     requests of 64 prompt tokens, one decode chunk each) under
     ``torch.profiler``: wall time, the card's busy time, and the kernels
     that took it. ``want_fn(stats)`` gives the launches this drain's path
@@ -955,10 +1022,11 @@ def check_spec(cfg, streams, m):
 
 
 def replay_windows(torch, cfg, params, prompts, streams, attend, device, *,
-                   capacity=CAPACITY, max_new=MAX_NEW):
+                   capacity=CAPACITY, max_new=MAX_NEW, k=None, extras=None):
     """Teacher-forced per-step logits [n, max_new, V] (f32) through the
-    verify step: prefill, then the served tokens fed back in windows of
-    k + 1 through ``paged_verify_step``."""
+    verify step: prefill (with the family's ``extras`` as in
+    :func:`replay`), then the served tokens fed back in windows of k + 1
+    (``SPEC_K`` unless given) through ``paged_verify_step``."""
     from repro_torch.models import prefill
     from repro_torch.models.paged import paged_verify_step
     from repro_torch.serve.batch import tail_targets_multi, write_prefill
@@ -972,9 +1040,10 @@ def replay_windows(torch, cfg, params, prompts, streams, attend, device, *,
                           device=device).reshape(n, pages)
     first = []
     for i, p in enumerate(prompts):
-        lg, cache = prefill(cfg, params, torch.as_tensor(p[None],
-                                                         device=device),
-                            capacity)
+        toks = torch.as_tensor(p[None], device=device)
+        kw = extras(toks) if extras else {"tokens": toks}
+        at_site([("pre", i)])
+        lg, cache = prefill(cfg, params, kw.pop("tokens"), capacity, **kw)
         write_prefill(pool, cache, tables[i], block_size=BLOCK_SIZE)
         first.append(lg[0, -1].float())
     steps = [torch.stack(first)[:, None]]
@@ -982,12 +1051,14 @@ def replay_windows(torch, cfg, params, prompts, streams, attend, device, *,
                           device=device)
     live = torch.ones(n, dtype=torch.bool, device=device)
     served = torch.as_tensor(streams, dtype=torch.int32, device=device)
-    for t0 in range(0, max_new - 1, SPEC_K + 1):
-        Q = min(SPEC_K + 1, max_new - 1 - t0)
+    k = k or SPEC_K
+    for t0 in range(0, max_new - 1, k + 1):
+        Q = min(k + 1, max_new - 1 - t0)
         blks, offs = tail_targets_multi(tables, idx, live, Q, BLOCK_SIZE,
                                         n * pages)
         pos = idx[:, None] + torch.arange(Q, dtype=torch.int32,
                                           device=device)
+        at_site([("dec", i, t0 + r) for i in range(n) for r in range(Q)])
         lg, _ = paged_verify_step(cfg, params,
                                   served[:, t0:t0 + Q].contiguous(),
                                   pool["kv"], tables, blks, offs, pos,
@@ -997,34 +1068,154 @@ def replay_windows(torch, cfg, params, prompts, streams, attend, device, *,
     return torch.cat(steps, dim=1)
 
 
+def replay_pair(torch, cfg, run_kernel, run_plain, tag):
+    """``(run_kernel(), run_plain())``: a teacher-forced replay through the
+    kernels and one through their plain versions. An MoE layer's routing is
+    a discrete choice (the top-k experts, and the capacity's drops in a
+    joint prefill) that an ulp of attention output can flip, after which
+    the two replays compute with other experts. So for the moe family the
+    plain replay takes the kernel replay's routing (its own router weights
+    at the kernel replay's experts; :func:`pinned_routing`), which holds the
+    attention to its error model; the routings it would have chosen
+    otherwise are counted, and each must be a near-tie: its own experts
+    hold at most ``MOE_TIE`` more router weight, relative, than the
+    pinned ones."""
+    if cfg.family != "moe":
+        return run_kernel(), run_plain()
+    with pinned_routing(torch) as pin:
+        ker = run_kernel()
+        pin["replay"] = True
+        plain = run_plain()
+        print(f"{tag} the plain replay took the kernel replay's MoE routing "
+              f"at {pin['calls']} routing groups; unpinned, {pin['flipped']} "
+              f"of them would have chosen other experts or drops, their "
+              f"experts at most {pin['tie']:.2e} apart in router weight "
+              f"(limit {MOE_TIE})")
+    return ker, plain
+
+
+# Where the replays' MoE routings happen (pinned_routing keys them by it):
+# ``keys`` names each routing group of the next model call, ``layer``
+# counts that call's layers, and ``offset`` is added to a replay's request
+# indices (in_batches sets it to the batch's first request).
+SITE = {"keys": None, "layer": 0, "offset": 0}
+
+
+def at_site(keys):
+    """Name the routing groups of the next model call: ``("pre", i)`` for
+    request i's prefill (one group), ``("dec", i, t)`` for the token that
+    feeds request i's served token t (one group each)."""
+    off = SITE["offset"]
+    SITE["keys"] = [(k[0], k[1] + off, *k[2:]) for k in keys]
+    SITE["layer"] = 0
+
+
+@contextlib.contextmanager
+def pinned_routing(torch):
+    """Record every MoE routing group, keyed by its site (:data:`SITE`) and
+    layer, while ``pin["replay"]`` is false; once it is set, each routing
+    group returns the choice recorded at its key (experts, positions,
+    drops) with its own router weights at those experts, renormalised, and
+    counts where its own choice differed. Keys, not call order, match the
+    groups, so the two replays may batch the requests differently."""
+    from repro_torch.models import moe
+
+    route, recorded = moe.route, {}
+    pin = {"replay": False, "calls": 0, "flipped": 0, "tie": 0.0}
+    fields = ("top_e", "pos", "keep", "dest")
+
+    def pinned(cfg, p, flat):
+        r = route(cfg, p, flat)
+        keys = [(*k, SITE["layer"]) for k in SITE["keys"]]
+        SITE["layer"] += 1
+        if len(keys) != flat.shape[0]:
+            raise AssertionError(f"{len(keys)} routing sites named for "
+                                 f"{flat.shape[0]} groups")
+        if not pin["replay"]:
+            for g, key in enumerate(keys):
+                recorded[key] = {f: r[f][g] for f in fields}
+            return r
+        rec = {f: torch.stack([recorded[k][f] for k in keys])
+               for f in fields}
+        pin["calls"] += len(keys)
+        w = torch.gather(r["probs"], -1, rec["top_e"])
+        if not (torch.equal(r["top_e"], rec["top_e"])
+                and torch.equal(r["keep"], rec["keep"])):
+            pin["flipped"] += int(((r["top_e"] != rec["top_e"]).flatten(1)
+                                   .any(1) | (r["keep"] != rec["keep"])
+                                   .any(1)).sum())
+            # how much router weight its own experts hold over the pinned
+            # ones, relative, at the tokens whose experts differ
+            own = torch.gather(r["probs"], -1, r["top_e"]).sum(-1)
+            gap = (own - w.sum(-1)) / own
+            pin["tie"] = max(pin["tie"], float(gap.max()))
+        return {**r, "top_e": rec["top_e"], "pos": rec["pos"],
+                "keep": rec["keep"], "dest": rec["dest"],
+                "top_w": w / torch.sum(w, dim=-1, keepdim=True)}
+
+    moe.route = pinned
+    try:
+        yield pin
+    finally:
+        moe.route = route
+    if pin["calls"] != len(recorded):
+        raise AssertionError(f"pinned routing: {pin['calls']} routing "
+                             f"groups replayed, {len(recorded)} recorded")
+    if pin["tie"] > MOE_TIE:
+        raise AssertionError(f"pinned routing: a routing flipped where its "
+                             f"experts were {pin['tie']:.4f} apart (limit "
+                             f"{MOE_TIE}): not a near-tie")
+
+
 def check_spec_replay(torch, cfg, params, prompts, streams, base, device,
                       tag="[7b]", **shape):
-    """Phase 7b (and 15): spec streams that differ from the
+    """Phase 7b (and 15, 16): spec streams that differ from the
     non-speculative ones (near-ties in bf16) must be what the plain
     attention would serve. ``shape``: the drain's ``capacity`` and
-    ``max_new``."""
+    ``max_new`` (and ``k`` and the family's ``extras`` for
+    :func:`replay_windows`)."""
     from repro_torch.kernels import paged_attention_multi, \
         paged_attention_multi_ref
 
     differ = [i for i in range(len(streams)) if streams[i] != base[i]]
+    if cfg.family == "moe":
+        # the verify windows of the drain start where each round's
+        # acceptance left them, the replay's every k + 1 tokens: their
+        # attention rounds otherwise, and an MoE routing near-tie can then
+        # take other experts, so the served tokens are not held to the
+        # replay. The window kernel is held to its plain version on every
+        # stream, with the routing pinned, and each stream's first token
+        # (the same prefill on both drains) must be its base's.
+        differ = list(range(len(streams)))
+        if any(s[0] != b[0] for s, b in zip(streams, base)):
+            raise AssertionError(f"{tag}: a first token differs from the "
+                                 "non-speculative drain's")
     if not differ:
         print(f"{tag} every speculative stream equals its non-speculative "
               "stream")
         return
     sel_p = [prompts[i] for i in differ]
     sel_s = [streams[i] for i in differ]
-    ker = replay_windows(torch, cfg, params, sel_p, sel_s,
-                         paged_attention_multi, device, **shape)
-    plain = replay_windows(torch, cfg, params, sel_p, sel_s,
-                           paged_attention_multi_ref, device, **shape)
+    ker, plain = replay_pair(
+        torch, cfg, lambda: replay_windows(
+            torch, cfg, params, sel_p, sel_s, paged_attention_multi, device,
+            **shape),
+        lambda: replay_windows(torch, cfg, params, sel_p, sel_s,
+                               paged_attention_multi_ref, device, **shape),
+        tag)
     diff = float((ker - plain).abs().max())
     served = torch.as_tensor(sel_s, device=device).long()
     served_logit = plain.gather(-1, served[..., None])[..., 0]
     gap = float((plain.max(-1).values - served_logit).max())
-    print(f"{tag} {len(differ)} of {len(streams)} speculative streams differ "
-          f"from the non-speculative ones; window replay: max |logits "
-          f"kernel - plain| {diff:.4f} (tol {TOL_REPLAY}); served token "
-          f"within {gap:.4f} of the plain argmax logit (tol {TOL_REPLAY})")
+    n_differ = sum(s != b for s, b in zip(streams, base))
+    print(f"{tag} {n_differ} of {len(streams)} speculative streams differ "
+          f"from the non-speculative ones; window replay of {len(differ)}: "
+          f"max |logits kernel - plain| {diff:.4f} (tol {TOL_REPLAY}); "
+          f"served token within {gap:.4f} of the plain argmax logit (tol "
+          f"{TOL_REPLAY}" + (", not held for the moe family)"
+                             if cfg.family == "moe" else ")"))
+    if cfg.family == "moe":
+        gap = 0.0
     if not torch.isfinite(ker).all() or diff > TOL_REPLAY \
             or gap > TOL_REPLAY:
         raise AssertionError("spec replay: the served streams disagree with "
@@ -1035,14 +1226,14 @@ def check_spec_replay(torch, cfg, params, prompts, streams, base, device,
 # Phases 8-10: the prefill kernels and continuous serving of recurrentgemma
 # ---------------------------------------------------------------------------
 
-def flash_case(torch, gen, *, B, H, Hkv, S, Dh, dtype):
-    """q ``[B, H, S, Dh]`` and k/v ``[B, Hkv, S, Dh]`` on the card, each a
-    ``[B, S, heads, Dh]`` tensor viewed in the kernel's layout, as the
-    model hands them over."""
-    def one(heads):
-        return torch.randn((B, S, heads, Dh), generator=gen,
+def flash_case(torch, gen, *, B, H, Hkv, S, Dh, dtype, Skv=None):
+    """q ``[B, H, S, Dh]`` and k/v ``[B, Hkv, Skv, Dh]`` (Skv = S unless
+    given: cross-attention) on the card, each a ``[B, S, heads, Dh]``
+    tensor viewed in the kernel's layout, as the model hands them over."""
+    def one(heads, n):
+        return torch.randn((B, n, heads, Dh), generator=gen,
                            device="cuda").to(dtype).transpose(1, 2)
-    return one(H), one(Hkv), one(Hkv)
+    return one(H, S), one(Hkv, Skv or S), one(Hkv, Skv or S)
 
 
 def attention_pairs(Sq, Skv, causal, window) -> int:
@@ -1113,7 +1304,8 @@ def library_excess(out, ref, spread) -> float:
 
 
 PHASE8_FLASH_CASES = [
-    # (label, B, H, Hkv, S, Dh, dtype, causal, window); dtype by name
+    # (label, B, H, Hkv, S, Dh, dtype, causal, window[, Skv]); dtype by
+    # name; Skv, the keys' length, is S unless given
     ("a recurrentgemma-2b", 1, 10, 1, 2300, 256, "bfloat16", True, 2048),
     ("b smollm-360m", 1, 15, 5, 300, 64, "bfloat16", True, None),
     ("S 100 (tail tile)", 1, 10, 1, 100, 256, "bfloat16", True, 64),
@@ -1140,10 +1332,11 @@ def check_flash_kernel(torch, cases=PHASE8_FLASH_CASES, tag="[8]",
     f32 = torch.float32
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
     rows = []
-    for label, B, H, Hkv, S, Dh, dtype, causal, window in cases:
+    for label, B, H, Hkv, S, Dh, dtype, causal, window, *skv in cases:
+        Skv = skv[0] if skv else S
         dtype = getattr(torch, dtype)
         q, k, v = flash_case(torch, gen, B=B, H=H, Hkv=Hkv, S=S, Dh=Dh,
-                             dtype=dtype)
+                             dtype=dtype, Skv=Skv)
         out = flash_attention(q, k, v, causal=causal, window=window)
         ref = attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
@@ -1152,7 +1345,8 @@ def check_flash_kernel(torch, cases=PHASE8_FLASH_CASES, tag="[8]",
         tol = (f"{TOL_F32}" if dtype == f32
                else f"{BF16_ATOL} + {BF16_RTOL} |plain|")
         print(f"{tag} flash_attention {label}: B={B} H={H} Hkv={Hkv} S={S} "
-              f"Dh={Dh} {str(dtype)[6:]} causal={causal} window={window}: "
+              f"Skv={Skv} Dh={Dh} {str(dtype)[6:]} causal={causal} "
+              f"window={window}: "
               f"max_abs_err {err:.3e} (tol {tol}, |plain| max "
               f"{float(ref.float().abs().max()):.3f})")
         if not torch.isfinite(out).all() or excess > 0:
@@ -1190,7 +1384,7 @@ def check_flash_kernel(torch, cases=PHASE8_FLASH_CASES, tag="[8]",
               f"max |library - plain| {lib_err:.3e}, tol {lib_tol}, "
               f"{lib_excess:.3e} past it) {library_ms:.4f} ms, "
               f"bound {bound:.5f} ms ({bound_by}), "
-              f"{attention_pairs(S, S, causal, window)} pairs per head, "
+              f"{attention_pairs(S, Skv, causal, window)} pairs per head, "
               f"L2 cold")
         rows.append({"name": "flash_attention", "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/"
@@ -1352,14 +1546,16 @@ def replay_hybrid(torch, cfg, params, prompts, streams, attend, scan,
     then the served tokens fed back through the slot decode, every slot at
     its own position."""
     from repro_torch.models import decode_step, prefill
-    from repro_torch.serve.batch import init_slot_cache, write_slot
+    from repro_torch.serve.batch import (init_slot_cache, slot_axes,
+                                         write_slot)
 
     cache = init_slot_cache(cfg, len(prompts), capacity, device=device)
+    axes = slot_axes(cfg, capacity)
     first = []
     for i, p in enumerate(prompts):
         lg, c = prefill(cfg, params, torch.as_tensor(p[None], device=device),
                         capacity, attend=attend, scan=scan)
-        write_slot(cache, c, i)
+        write_slot(cache, c, i, axes)
         first.append(lg[0, -1].float())
     steps = [torch.stack(first)]
     for t in range(max_new - 1):
@@ -1615,16 +1811,18 @@ def check_replay_ssm(torch, cfg, params, prompts, streams, device):
     version under the stated error model; the logits must be finite, and
     the served tokens' agreement with the replay's argmax is reported."""
     from repro_torch.models import decode_step, prefill
-    from repro_torch.serve.batch import init_slot_cache, write_slot
+    from repro_torch.serve.batch import (init_slot_cache, slot_axes,
+                                         write_slot)
 
     wkv = WkvReplay(torch)
     cache = init_slot_cache(cfg, len(prompts), HYB_CAPACITY, device=device)
+    axes = slot_axes(cfg, HYB_CAPACITY)
     first = []
     for i, p in enumerate(prompts):
         lg, c = prefill(cfg, params, torch.as_tensor(p[None], device=device),
                         HYB_CAPACITY, wkv=wkv)
         wkv.check()
-        write_slot(cache, c, i)
+        write_slot(cache, c, i, axes)
         first.append(lg[0, -1].float())
     steps = [torch.stack(first)]
     for t in range(HYB_MAX_NEW - 1):
@@ -2364,11 +2562,13 @@ def check_gossip(torch, card, trainer):
 # Phase 15: the dense configs of the eighth slice and the rest of the engine
 # ---------------------------------------------------------------------------
 
-def paged_row(torch, label, cfg, lengths, Q=None, tag="[15]"):
+def paged_row(torch, label, cfg, lengths, Q=None, tag="[15]",
+              capacity=QW_CAPACITY):
     """The paged decode kernel (or, with ``Q``, the verify window) at a
-    dense config's serving shape against its plain version, bf16, timed
-    beside it, L2 cold: a pool of two slots' capacity, slot 1 sharing slot
-    0's first 7 pages. Returns the row's kernels-line entry."""
+    config's serving shape against its plain version, bf16, timed beside
+    it, L2 cold: a pool of two slots' ``capacity`` (or as many blocks as the
+    lengths need), slot 1 sharing slot 0's first 7 pages. Returns the row's
+    kernels-line entry."""
     from repro_torch.kernels import (paged_attention, paged_attention_multi,
                                      paged_attention_multi_ref,
                                      paged_attention_ref)
@@ -2376,10 +2576,12 @@ def paged_row(torch, label, cfg, lengths, Q=None, tag="[15]"):
     kernel, plain = ((paged_attention_multi, paged_attention_multi_ref) if Q
                      else (paged_attention, paged_attention_ref))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
-    n_pages, layer = QW_CAPACITY // BLOCK_SIZE, cfg.n_layers - 1
+    n_pages, layer = capacity // BLOCK_SIZE, cfg.n_layers - 1
+    # two slots' capacity, or the blocks the lengths need if more
+    blocks = max(2 * n_pages, sum(-(-n // BLOCK_SIZE) for n in lengths))
     case = paged_case(torch, gen, lengths=lengths, H=cfg.n_heads,
                       Hkv=cfg.n_kv_heads, Dh=cfg.head_dim, L=cfg.n_layers,
-                      bs=BLOCK_SIZE, n_pages=n_pages, num_blocks=2 * n_pages,
+                      bs=BLOCK_SIZE, n_pages=n_pages, num_blocks=blocks,
                       dtype=cfg.dtype, alias_pages=7, Q=Q)
     out, ref = kernel(*case, layer), plain(*case, layer)
     torch.cuda.synchronize()
@@ -2463,13 +2665,22 @@ def dense_want(cfg, st, kernel=True, rounds=0):
 
 
 def serve_dense(torch, what, cfg, params, device, prompts, max_new, want_fn,
-                **kw):
+                widths=None, **kw):
     """Drain ``prompts`` through ``ServeEngine(cfg, params, **kw)``: full
     streams in the vocabulary, and every kernel wrapper's count equal to
-    ``want_fn(stats)``. Returns (engine, streams, metrics)."""
+    ``want_fn(stats)``. A list ``widths`` gets the table width of each
+    paged decode chunk. Returns (engine, streams, metrics)."""
     from repro_torch.serve import ServeEngine
 
     eng = ServeEngine(cfg, params, device=device, **kw)
+    if widths is not None:
+        chunk = eng._paged_decode
+
+        def recorded(params, tok, pool, tables, *rest):
+            widths.append(tables.shape[1])
+            return chunk(params, tok, pool, tables, *rest)
+
+        eng._paged_decode = recorded
     streams, m = drain(torch, eng, prompts, max_new)
     if any(len(s) != max_new for s in streams):
         raise AssertionError(f"{what}: stream lengths "
@@ -2481,10 +2692,11 @@ def serve_dense(torch, what, cfg, params, device, prompts, max_new, want_fn,
 
 
 def replay_cohort(torch, cfg, params, prompts, streams, attend, device, *,
-                  max_batch, capacity, max_new):
+                  max_batch, capacity, max_new, extras=None):
     """Teacher-forced per-step logits [n, max_new, V] (f32) of the cohort
-    drain: each cohort's left-padded batch prefill through ``attend``, then
-    its served tokens fed back through ``decode_step``."""
+    drain: each cohort's left-padded batch prefill through ``attend`` (with
+    the family's ``extras`` as in :func:`replay`), then its served tokens
+    fed back through ``decode_step``."""
     from repro_torch.models import decode_step, prefill
 
     out = []
@@ -2494,8 +2706,10 @@ def replay_cohort(torch, cfg, params, prompts, streams, attend, device, *,
         toks = np.zeros((len(group), S), np.int32)
         for i, p in enumerate(group):
             toks[i, S - len(p):] = p
-        lg, cache = prefill(cfg, params, torch.as_tensor(toks, device=device),
-                            capacity, attend=attend)
+        toks = torch.as_tensor(toks, device=device)
+        kw = extras(toks) if extras else {"tokens": toks}
+        lg, cache = prefill(cfg, params, kw.pop("tokens"), capacity,
+                            attend=attend, **kw)
         steps = [lg[:, -1].float()]
         for t in range(max_new - 1):
             tok = torch.as_tensor([[s[t]] for s in served], dtype=torch.int32,
@@ -2531,10 +2745,12 @@ def check_agreement(torch, tag, ker, plain, streams, device):
 
 
 def check_same_or_near_tie(torch, tag, cfg, params, prompts, streams, base,
-                           device, *, capacity, max_new):
+                           device, *, capacity, max_new, extras=None,
+                           replay_fn=None):
     """``streams`` must equal ``base`` wherever the teacher-forced logits
     tell them apart: where a stream differs, both it and its base are
-    replayed through the plain attention, and every served token must lie
+    replayed through the plain attention (by :func:`replay`, or
+    ``replay_fn(prompts, streams)``), and every served token must lie
     within ``TOL_REPLAY`` of the plain argmax logit (a bf16 near-tie)."""
     from repro_torch.kernels import paged_attention_ref
 
@@ -2543,10 +2759,14 @@ def check_same_or_near_tie(torch, tag, cfg, params, prompts, streams, base,
         print(f"{tag} every stream equals the kernel drain's")
         return 0
     sel = [prompts[i] for i in differ]
-    gaps = [served_gap(torch, replay(
-        torch, cfg, params, sel, [s[i] for i in differ], paged_attention_ref,
-        device, capacity=capacity, max_new=max_new), [s[i] for i in differ],
-        device) for s in (streams, base)]
+    if replay_fn is None:
+        def replay_fn(ps, ss):
+            return replay(torch, cfg, params, ps, ss, paged_attention_ref,
+                          device, capacity=capacity, max_new=max_new,
+                          extras=extras)
+    gaps = [served_gap(torch, replay_fn(sel, [s[i] for i in differ]),
+                       [s[i] for i in differ], device)
+            for s in (streams, base)]
     print(f"{tag} {len(differ)} of {len(streams)} streams differ from the "
           f"kernel drain's; under the plain replay each served token is "
           f"within {max(gaps):.4f} of the argmax logit (tol {TOL_REPLAY})")
@@ -2801,6 +3021,619 @@ def check_dense_configs(torch, card, device, flash_rows):
     print("[15 rows] " + json.dumps(rows) + f" {card}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the moe, vlm and audio families
+# ---------------------------------------------------------------------------
+
+def family_configs():
+    """Phase 16's configs: the published widths, the depth cut only where
+    one 80 GB card forces it (``FAM_DEPTH``)."""
+    from repro_torch.configs import get
+
+    return {arch: (get(arch).config if depth is None
+                   else get(arch).config.with_overrides(n_layers=depth))
+            for arch, depth in FAM_DEPTH.items()}
+
+
+def family_flash_cases(cfgs):
+    """Phase 16's flash-attention cases, as :func:`check_flash_kernel`
+    takes them: whisper-tiny's encoder (1 500 frames, full) and its prefill
+    cross-attention (a 300-token prompt over the 1 500 frames, full),
+    phi3.5-moe's prefill (32 heads over 8 of 128) and chameleon-34b's (64
+    over 8 of 128, a 1 300-token prompt)."""
+    wh, phi, ch = cfgs[WH_ARCH], cfgs[PHI_ARCH], cfgs[CH_ARCH]
+    return [
+        ("whisper-tiny encoder", 1, wh.n_heads, wh.n_kv_heads, wh.src_len,
+         wh.head_dim, "bfloat16", False, None),
+        ("whisper-tiny cross-attention", 1, wh.n_heads, wh.n_kv_heads, 300,
+         wh.head_dim, "bfloat16", False, None, wh.src_len),
+        ("phi3.5-moe prefill", 1, phi.n_heads, phi.n_kv_heads, 300,
+         phi.head_dim, "bfloat16", True, None),
+        ("chameleon-34b prefill", 1, ch.n_heads, ch.n_kv_heads, 1300,
+         ch.head_dim, "bfloat16", True, None),
+    ]
+
+
+def family_paged_rows(torch, cfgs):
+    """Phase 16 (rows): the paged kernels at the new heads, each against
+    its plain version and timed: decode at phi3.5-moe's (32 over 8 of 128)
+    and chameleon-34b's (64 over 8 of 128, slots of 1 100-1 400
+    positions), and chameleon's verify window at k 8 (Q 9 x G 8 = 72 rows,
+    past one 64-row tile)."""
+    phi, ch = cfgs[PHI_ARCH], cfgs[CH_ARCH]
+    return {
+        "decode phi": paged_row(torch, "phi3.5-moe", phi, [258, 300, 17, 316],
+                                tag="[16]"),
+        "decode chameleon": paged_row(torch, "chameleon-34b", ch,
+                                      [1100, 1300, 1400, 1250], tag="[16]",
+                                      capacity=CH_CAPACITY),
+        "verify chameleon": paged_row(torch, "chameleon-34b k 8", ch,
+                                      [1109, 1309, 20, 1259],
+                                      Q=CH_SPEC_K + 1, tag="[16]",
+                                      capacity=CH_CAPACITY),
+    }
+
+
+@contextlib.contextmanager
+def counting_drops(torch):
+    """Every per-token MoE routing's dropped (token, choice) assignments
+    while the block runs: the groups of one token that a slot decode, a
+    paged decode, a verify window row or a draft step routes. Yields a list
+    of device counts (summed once, at the end)."""
+    from repro_torch.models import moe
+
+    route, drops = moe.route, []
+
+    def watched(cfg, p, flat):
+        r = route(cfg, p, flat)
+        if flat.shape[1] == 1:
+            drops.append((~r["keep"]).sum())
+        return r
+
+    moe.route = watched
+    try:
+        yield drops
+    finally:
+        moe.route = route
+
+
+def serve_family(torch, card, what, cfg, params, device, prompts, max_new,
+                 want_fn, **kw):
+    """:func:`serve_dense` with the MoE family's per-token drops counted
+    (there must be none: a group of one token has C = 4 >= K), each paged
+    decode chunk's table width recorded (``widths``), and the drain's
+    tokens/s and the card's peak memory printed. Returns (engine, streams,
+    metrics)."""
+    torch.cuda.reset_peak_memory_stats()
+    widths = []
+    paged = kw.get("mode") == "paged" and "speculate" not in kw
+    with counting_drops(torch) as drops:
+        eng, streams, m = serve_dense(torch, what, cfg, params, device,
+                                      prompts, max_new, want_fn,
+                                      widths=widths if paged else None, **kw)
+    m["widths"] = widths
+    m["per_token_routings"] = len(drops)
+    m["dropped"] = int(torch.stack(drops).sum()) if drops else 0
+    m["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if cfg.family == "moe" and (not drops or m["dropped"]):
+        raise AssertionError(f"{what}: {m['dropped']} tokens dropped in "
+                             f"{len(drops)} per-token MoE routings")
+    print(f"{what}: " + json.dumps({k: m[k] for k in (
+        "wall_s", "tokens", "tokens_per_s", "ttft_p50_ms", "prefills",
+        "decode_steps", "counts", "per_token_routings", "dropped",
+        "peak_gb") if k in m}) + f"; {card}")
+    return eng, streams, m
+
+
+def family_want(cfg, st, kernel=True, rounds=0):
+    """Launches a phase-16 drain must count: :func:`dense_want`, and for
+    the audio family the flash kernel per encoder layer at the slot
+    cache's init (continuous mode) and per prefill, and twice per decoder
+    layer per prefill (self- and cross-attention)."""
+    if cfg.family != "audio":
+        return dense_want(cfg, st, kernel, rounds)
+    inits = 1 if st["mode"] == "continuous" else 0
+    return {"flash_attention": cfg.n_enc_layers * (inits + st["prefills"])
+            + 2 * cfg.n_layers * st["prefills"]}
+
+
+def replay_slots(torch, cfg, params, prompts, streams, attend, device, *,
+                 capacity, max_new, extras):
+    """Teacher-forced per-step logits [n, max_new, V] (f32) of a
+    continuous drain: each prompt's prefill (with the engine's family
+    ``extras``) through ``attend`` into its slot, then the served tokens
+    through the slot decode, each slot at its own position and routed
+    alone (``moe_per_token``), as the engine's slot decode routes it."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serve.batch import init_slot_cache, slot_axes, write_slot
+
+    n = len(prompts)
+    src = None
+    if cfg.family == "audio":
+        src = torch.zeros((n, cfg.src_len, cfg.d_model), dtype=cfg.dtype,
+                          device=device)
+    cache = init_slot_cache(cfg, n, capacity, device=device, params=params,
+                            src_embeds=src)
+    axes = slot_axes(cfg, capacity, params=params)
+    first = []
+    for i, p in enumerate(prompts):
+        kw = extras(torch.as_tensor(p[None], device=device))
+        at_site([("pre", i)])
+        lg, c = prefill(cfg, params, kw.pop("tokens"), capacity,
+                        attend=attend, **kw)
+        write_slot(cache, c, i, axes)
+        first.append(lg[0, -1].float())
+    steps = [torch.stack(first)]
+    for t in range(max_new - 1):
+        tok = torch.as_tensor([[s[t]] for s in streams], dtype=torch.int32,
+                              device=device)
+        at_site([("dec", i, t) for i in range(n)])
+        lg, cache = decode_step(cfg, params, tok, cache, moe_per_token=True)
+        steps.append(lg[:, -1].float())
+    return torch.stack(steps, dim=1)
+
+
+def in_batches(torch, fn, prompts, streams, size=FAM_MAX_BATCH):
+    """``fn(prompts, streams, g)`` over consecutive groups ``g`` of
+    ``size`` requests, concatenated: a replay batched as the engine of
+    ``size`` slots batched the drain (its slots take the requests in order,
+    all with one budget), so each matmul has the engine's shape and rounds
+    as it rounded."""
+    out = []
+    for i in range(0, len(prompts), size):
+        SITE["offset"] = i
+        try:
+            out.append(fn(prompts[i:i + size], streams[i:i + size],
+                          i // size))
+        finally:
+            SITE["offset"] = 0
+    return torch.cat(out)
+
+
+def check_slots(torch, tag, cfg, eng, prompts, streams, device, **shape):
+    """A continuous drain's teacher-forced replay, the flash kernel against
+    the plain attention (decode attends through the einsum ``sdpa`` on both
+    paths). Returns the plain replay's logits."""
+    from repro_torch.kernels import attention_ref, ops
+
+    kw = {"extras": eng._prefill_inputs, **shape}
+    ker, plain = replay_pair(
+        torch, cfg, lambda: in_batches(torch, lambda ps, ss, _: replay_slots(
+            torch, cfg, eng.params, ps, ss, ops.attention, device, **kw),
+            prompts, streams),
+        lambda: in_batches(torch, lambda ps, ss, _: replay_slots(
+            torch, cfg, eng.params, ps, ss, attention_ref, device, **kw),
+            prompts, streams), tag)
+    check_agreement(torch, tag, ker, plain, streams, device)
+    return plain
+
+
+def check_paged(torch, tag, cfg, eng, prompts, streams, widths, device,
+                **shape):
+    """A paged kernel drain's teacher-forced replay: flash prefill and the
+    decode kernel, against both plain versions. ``widths``: the table
+    width of each of the drain's decode chunks, in order (two chunks per
+    group of requests)."""
+    from repro_torch.kernels import (attention_ref, paged_attention,
+                                     paged_attention_ref)
+
+    kw = {"extras": eng._prefill_inputs, **shape}
+    per = -(-(shape["max_new"] - 1) // DECODE_CHUNK)   # chunks per group
+    if len(widths) != per * -(-len(prompts) // FAM_MAX_BATCH):
+        raise AssertionError(f"{tag}: {len(widths)} decode chunks, want "
+                             f"{per} per group of {FAM_MAX_BATCH}")
+
+    def run(attend, **more):
+        return in_batches(torch, lambda ps, ss, g: replay(
+            torch, cfg, eng.params, ps, ss, attend, device,
+            widths=widths[g * per:(g + 1) * per], **kw, **more),
+            prompts, streams)
+
+    ker, plain = replay_pair(
+        torch, cfg, lambda: run(paged_attention),
+        lambda: run(paged_attention_ref, prefill_attend=attention_ref), tag)
+    check_agreement(torch, tag, ker, plain, streams, device)
+
+
+def replay_ref_paged(torch, cfg, params, prompts, streams, device, *,
+                     capacity, max_new, extras, widths):
+    """Teacher-forced per-step logits [n, max_new, V] (f32) of a paged drain
+    on the ``kv_impl="reference"`` read path, its arithmetic exactly: each
+    prompt's flash prefill written into the pool, then per step and slot
+    the slot's pages gathered at the drain's table width (``widths``, one
+    per decode chunk) and ``decode_step`` at batch 1 on them."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serve.batch import (gather_pages, scatter_token,
+                                         slice_token, tail_targets,
+                                         write_prefill)
+
+    n, pages = len(prompts), capacity // BLOCK_SIZE
+    shape = (n * pages + 1, BLOCK_SIZE, cfg.n_layers, cfg.n_kv_heads,
+             cfg.head_dim)
+    pool = {"kv": {k: torch.zeros(shape, dtype=cfg.dtype, device=device)
+                   for k in ("k", "v")}}
+    tables = torch.arange(n * pages, dtype=torch.int32,
+                          device=device).reshape(n, pages)
+    first = []
+    for i, p in enumerate(prompts):
+        kw = extras(torch.as_tensor(p[None], device=device))
+        at_site([("pre", i)])
+        lg, cache = prefill(cfg, params, kw.pop("tokens"), capacity, **kw)
+        write_prefill(pool, cache, tables[i], block_size=BLOCK_SIZE)
+        first.append(lg[0, -1].float())
+    steps = [torch.stack(first)]
+    idx = torch.as_tensor([len(p) for p in prompts], dtype=torch.int32,
+                          device=device)
+    live = torch.ones(n, dtype=torch.bool, device=device)
+    for t in range(max_new - 1):
+        tab = tables[:, :widths[t // DECODE_CHUNK]].contiguous()
+        logits, writes = [], []
+        for i in range(n):
+            at_site([("dec", i, t)])
+            lg, new = decode_step(
+                cfg, params, torch.as_tensor([[streams[i][t]]],
+                                             dtype=torch.int32,
+                                             device=device),
+                {**gather_pages(pool, tab[i]), "idx": idx[i]})
+            logits.append(lg[0, -1].float())
+            writes.append(slice_token(new, idx[i]))
+        blk, off = tail_targets(tab, idx, live, BLOCK_SIZE, n * pages)
+        scatter_token(pool, {"kv": {name: torch.stack(
+            [w["kv"][name] for w in writes]) for name in ("k", "v")}},
+            blk, off)
+        steps.append(torch.stack(logits))
+        idx = idx + 1
+    return torch.stack(steps, dim=1)
+
+
+def check_moe_paths(torch, tag, cfg, prompts, a, b, run_a, run_b, device):
+    """Two drains of the moe family on two computations of one model (the
+    paged kernel and reference read paths; slots batched and one request at
+    a time): ``run_a(prompts, streams)`` and ``run_b`` replay each path's
+    arithmetic exactly, teacher-forced. Each drain's streams must be its
+    own path's greedy output (every served token within ``TOL_REPLAY`` of
+    its replay's argmax logit). Where the drains' streams differ, both
+    paths replay each differing stream with b's routing pinned to a's: the
+    logits must agree within ``TOL_REPLAY`` and every routing b would have
+    chosen otherwise must be a near-tie (:func:`replay_pair`). So the paths
+    differ by bf16 rounding and by the routing near-ties it tips, which
+    then send a stream along other experts."""
+    for what, run, streams in (("a", run_a, a), ("b", run_b, b)):
+        gap = served_gap(torch, run(prompts, streams), streams, device)
+        print(f"{tag} drain {what}: each served token within {gap:.4f} of "
+              f"its own path's replayed argmax logit (tol {TOL_REPLAY})")
+        if gap > TOL_REPLAY:
+            raise AssertionError(f"{tag}: drain {what} is not its own "
+                                 "path's greedy output")
+    differ = [i for i in range(len(a)) if a[i] != b[i]]
+    print(f"{tag} {len(differ)} of {len(a)} streams differ")
+    for streams in (a, b):
+        if not differ:
+            break
+        sel_p = [prompts[i] for i in differ]
+        sel_s = [streams[i] for i in differ]
+        la, lb = replay_pair(torch, cfg, lambda: run_a(sel_p, sel_s),
+                             lambda: run_b(sel_p, sel_s), tag)
+        diff = float((la - lb).abs().max())
+        print(f"{tag} with b's routing pinned to a's, max |logits a - b| "
+              f"{diff:.4f} (tol {TOL_REPLAY})")
+        if diff > TOL_REPLAY:
+            raise AssertionError(f"{tag}: the paths differ beyond bf16 "
+                                 "rounding once routed alike")
+
+
+def slots_plain(torch, cfg, eng, device, **shape):
+    """``replay_fn`` for :func:`check_same_or_near_tie` on continuous
+    streams: :func:`replay_slots` through the plain attention."""
+    from repro_torch.kernels import attention_ref
+
+    return lambda ps, ss: replay_slots(torch, cfg, eng.params, ps, ss,
+                                       attention_ref, device,
+                                       extras=eng._prefill_inputs, **shape)
+
+
+def leaves(tree) -> list:
+    """The tensors of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def damp_(torch, params, first, factor):
+    """:func:`damped`, in place: every layer from ``first`` on scaled by
+    ``factor`` (phase 16's targets are too large to copy)."""
+    for leaf in leaves(params["layers"]):
+        leaf[first:] *= factor
+    return params
+
+
+def check_phi(torch, card, cfg, params, device, rows):
+    """Phase 16 (a): phi3.5-moe (8 of 32 layers, 16 experts of d_ff 6 400,
+    top-2) on phase 15's 8 requests, ``max_new`` 16, 4 slots: continuous
+    (against the drain one request at a time), paged on the kernel and the
+    reference read paths (without prefix sharing), then speculative (its
+    first 2 layers the draft of the damped target, k 3). The pairs of
+    drains are compared by :func:`check_moe_paths`: an MoE routing
+    near-tie, tipped by bf16 rounding, sends a stream along other
+    experts."""
+    from repro_torch.kernels import ops, paged_attention
+    from repro_torch.serve import SpecConfig
+    from repro_torch.weights import truncate_params
+
+    prompts = workload(cfg.vocab, n=QW_REQUESTS)
+    shape = {"capacity": QW_CAPACITY, "max_new": FAM_MAX_NEW}
+    cont = dict(mode="continuous", capacity=QW_CAPACITY,
+                max_batch=FAM_MAX_BATCH, decode_chunk=DECODE_CHUNK)
+    # no shared prefixes: an MoE prefill routes its prompt jointly, so a
+    # prefix's K/V depend on the whole prompt's length (through the
+    # capacity and the drops), and another request's are not this one's
+    # (the reference shares them all the same); the replays compute each
+    # request's own
+    paged = {**cont, "mode": "paged", "block_size": BLOCK_SIZE,
+             "share_prefix": False}
+    dense = partial(family_want, cfg)
+
+    eng, streams, m = serve_family(
+        torch, card, "[16a] phi continuous", cfg, params, device, prompts,
+        FAM_MAX_NEW, lambda st: dense({**st, "mode": "continuous"},
+                                      kernel=False), **cont)
+    check_slots(torch, "[16a] phi continuous", cfg, eng, prompts, streams,
+                device, **shape)
+    _, serial, _ = serve_family(
+        torch, card, "[16a] phi one request at a time", cfg, params, device,
+        prompts, FAM_MAX_NEW, lambda st: dense({**st, "mode": "continuous"},
+                                               kernel=False),
+        **{**cont, "max_batch": 1})
+    kw = {"extras": eng._prefill_inputs, **shape}
+
+    def slots(size):
+        return lambda ps, ss: in_batches(torch, lambda p, s, _: replay_slots(
+            torch, cfg, eng.params, p, s, ops.attention, device, **kw), ps,
+            ss, size)
+
+    check_moe_paths(torch, "[16a] phi continuous vs serial", cfg, prompts,
+                    streams, serial, slots(FAM_MAX_BATCH), slots(1), device)
+    del eng
+
+    eng, kernel, m = serve_family(
+        torch, card, "[16a] phi paged kernel", cfg, params, device, prompts,
+        FAM_MAX_NEW, lambda st: dense(st), kv_impl="kernel", **paged)
+    rows["decode phi"]["launches"] = m["launches"]
+    rows["flash phi"]["launches"] = m["flash_launches"]
+    check_paged(torch, "[16a] phi paged kernel", cfg, eng, prompts, kernel,
+                m["widths"], device, **shape)
+    profile_drain(torch, eng, cfg.vocab, lambda st: dense(st), tag="[16a]")
+    extras, widths = eng._prefill_inputs, m["widths"]
+    del eng
+    eng, ref_streams, m = serve_family(
+        torch, card, "[16a] phi paged reference", cfg, params, device,
+        prompts, FAM_MAX_NEW, lambda st: dense(st, kernel=False),
+        kv_impl="reference", **paged)
+    per = -(-(FAM_MAX_NEW - 1) // DECODE_CHUNK)   # chunks per group
+
+    def run_kernel(ps, ss):
+        return in_batches(torch, lambda p, s, g: replay(
+            torch, cfg, eng.params, p, s, paged_attention, device,
+            widths=widths[g * per:(g + 1) * per], **kw), ps, ss)
+
+    def run_reference(ps, ss):
+        return in_batches(torch, lambda p, s, g: replay_ref_paged(
+            torch, cfg, eng.params, p, s, device,
+            widths=m["widths"][g * per:(g + 1) * per], **kw), ps, ss)
+
+    check_moe_paths(torch, "[16a] phi paged kernel vs reference", cfg,
+                    prompts, kernel, ref_streams, run_kernel, run_reference,
+                    device)
+    del eng
+
+    target = damp_(torch, params, SPEC_DRAFT_LAYERS, SPEC_DAMP)
+    eng, base, _ = serve_family(
+        torch, card, "[16a] phi damped paged", cfg, target, device, prompts,
+        FAM_MAX_NEW, lambda st: dense(st), **paged)
+    del eng
+    spec = SpecConfig(cfg.with_overrides(n_layers=SPEC_DRAFT_LAYERS),
+                      truncate_params(target, SPEC_DRAFT_LAYERS), k=SPEC_K)
+    rounds = spec.rounds_for(DECODE_CHUNK)
+    eng, streams, m = serve_family(
+        torch, card, "[16a] phi speculative", cfg, target, device, prompts,
+        FAM_MAX_NEW, lambda st: dense(
+            st, rounds=st["decode_dispatches"] * rounds), speculate=spec,
+        **paged)
+    print(f"[16a] phi speculative: accepted {m['spec_accepted']} of "
+          f"{m['spec_proposed']} proposed")
+    if not 0 < m["spec_accepted"] <= m["spec_proposed"]:
+        raise AssertionError("phi speculative: no draft accepted")
+    check_spec_replay(torch, cfg, eng.params, prompts, streams, base, device,
+                      tag="[16a] phi speculative", extras=extras, **shape)
+
+
+def check_grok(torch, card, cfg, params, device, rows):
+    """Phase 16 (b): grok-1 (2 of 64 layers, 8 experts of d_ff 32 768,
+    soft-cap 30), a continuous drain of 4 requests, replayed
+    teacher-forced; every logit within the soft-cap."""
+    prompts = workload(cfg.vocab, n=QW_REQUESTS)[:GROK_REQUESTS]
+    shape = {"capacity": QW_CAPACITY, "max_new": FAM_MAX_NEW}
+    eng, streams, m = serve_family(
+        torch, card, "[16b] grok continuous", cfg, params, device, prompts,
+        FAM_MAX_NEW, lambda st: family_want(cfg, {**st, "mode":
+                                                  "continuous"},
+                                            kernel=False),
+        mode="continuous", capacity=QW_CAPACITY, max_batch=FAM_MAX_BATCH,
+        decode_chunk=DECODE_CHUNK)
+    plain = check_slots(torch, "[16b] grok continuous", cfg, eng, prompts,
+                        streams, device, **shape)
+    top = float(plain.abs().max())
+    print(f"[16b] grok |logit| max {top:.3f} (soft-cap "
+          f"{cfg.logits_softcap})")
+    if top > cfg.logits_softcap:
+        raise AssertionError("grok: a logit past the soft-cap")
+
+
+def chameleon_workload(vocab):
+    """Phase 16 (c)'s prompts: CH_REQUESTS seeded prompts of 1 100-1 400
+    tokens, longer than the 1 024 image positions the engine fuses."""
+    rng = np.random.default_rng(SEED + 16)
+    return [rng.integers(0, vocab, size=int(n)).astype(np.int32)
+            for n in rng.integers(*CH_PROMPT_LENS, size=CH_REQUESTS)]
+
+
+def check_chameleon(torch, card, cfg, params, device, rows):
+    """Phase 16 (c): chameleon-34b (16 of 48 layers), 4 requests of
+    1 100-1 400 tokens: paged on the kernel path (replayed
+    teacher-forced), continuous (against the paged streams), then
+    speculative at k 8 (its first 2 layers the draft of the damped target):
+    a verify window of 9 rows x 8 heads per KV head, 72 rows, which the
+    repaired window kernel takes."""
+    from repro_torch.serve import SpecConfig
+    from repro_torch.weights import truncate_params
+
+    prompts = chameleon_workload(cfg.vocab)
+    shape = {"capacity": CH_CAPACITY, "max_new": FAM_MAX_NEW}
+    paged = dict(mode="paged", capacity=CH_CAPACITY, max_batch=FAM_MAX_BATCH,
+                 block_size=BLOCK_SIZE, decode_chunk=DECODE_CHUNK)
+    dense = partial(family_want, cfg)
+    eng, kernel, m = serve_family(
+        torch, card, "[16c] chameleon paged kernel", cfg, params, device,
+        prompts, FAM_MAX_NEW, lambda st: dense(st), **paged)
+    rows["decode chameleon"]["launches"] = m["launches"]
+    rows["flash chameleon"]["launches"] = m["flash_launches"]
+    check_paged(torch, "[16c] chameleon paged kernel", cfg, eng, prompts,
+                kernel, m["widths"], device, **shape)
+    profile_drain(torch, eng, cfg.vocab, lambda st: dense(st), tag="[16c]")
+    extras = eng._prefill_inputs
+    del eng
+    eng, streams, _ = serve_family(
+        torch, card, "[16c] chameleon continuous", cfg, params, device,
+        prompts, FAM_MAX_NEW, lambda st: dense({**st, "mode": "continuous"},
+                                               kernel=False),
+        **{**paged, "mode": "continuous"})
+    check_same_or_near_tie(torch, "[16c] chameleon continuous vs paged",
+                           cfg, eng.params, prompts, streams, kernel, device,
+                           extras=extras, **shape)
+    del eng
+
+    target = damp_(torch, params, SPEC_DRAFT_LAYERS, SPEC_DAMP)
+    eng, base, _ = serve_family(
+        torch, card, "[16c] chameleon damped paged", cfg, target, device,
+        prompts, FAM_MAX_NEW, lambda st: dense(st), **paged)
+    del eng
+    spec = SpecConfig(cfg.with_overrides(n_layers=SPEC_DRAFT_LAYERS),
+                      truncate_params(target, SPEC_DRAFT_LAYERS),
+                      k=CH_SPEC_K)
+    rounds = spec.rounds_for(DECODE_CHUNK)
+    eng, streams, m = serve_family(
+        torch, card, "[16c] chameleon speculative k 8", cfg, target, device,
+        prompts, FAM_MAX_NEW, lambda st: dense(
+            st, rounds=st["decode_dispatches"] * rounds), speculate=spec,
+        **paged)
+    rows["verify chameleon"]["launches"] = m["multi_launches"]
+    print(f"[16c] chameleon speculative k 8: accepted {m['spec_accepted']} "
+          f"of {m['spec_proposed']} proposed")
+    check_spec_replay(torch, cfg, eng.params, prompts, streams, base, device,
+                      tag="[16c] chameleon k 8", k=CH_SPEC_K, extras=extras,
+                      **shape)
+
+
+def check_whisper(torch, card, cfg, params, device, rows):
+    """Phase 16 (d): whisper-tiny whole (4 encoder and 4 decoder layers,
+    1 500 source frames), 8 requests, 4 slots: continuous (replayed
+    teacher-forced, and against the drain one request at a time) and the
+    cohort drain (replayed teacher-forced)."""
+    from repro_torch.kernels import attention_ref, ops
+
+    prompts = workload(cfg.vocab, n=QW_REQUESTS)
+    shape = {"capacity": QW_CAPACITY, "max_new": FAM_MAX_NEW}
+    cont = dict(mode="continuous", capacity=QW_CAPACITY,
+                max_batch=FAM_MAX_BATCH, decode_chunk=DECODE_CHUNK)
+    want = partial(family_want, cfg)
+    eng, streams, m = serve_family(
+        torch, card, "[16d] whisper continuous", cfg, params, device,
+        prompts, FAM_MAX_NEW, lambda st: want({**st, "mode": "continuous"}),
+        **cont)
+    rows["flash whisper encoder"]["launches"] = \
+        cfg.n_enc_layers * (1 + m["prefills"])
+    rows["flash whisper cross"]["launches"] = cfg.n_layers * m["prefills"]
+    check_slots(torch, "[16d] whisper continuous", cfg, eng, prompts,
+                streams, device, **shape)
+    profile_drain(torch, eng, cfg.vocab, lambda st: want(
+        {**st, "mode": "continuous"}), tag="[16d]")
+    _, serial, _ = serve_family(
+        torch, card, "[16d] whisper one request at a time", cfg, params,
+        device, prompts, FAM_MAX_NEW,
+        lambda st: want({**st, "mode": "continuous"}),
+        **{**cont, "max_batch": 1})
+    check_same_or_near_tie(torch, "[16d] whisper continuous vs serial", cfg,
+                           eng.params, prompts, streams, serial, device,
+                           replay_fn=slots_plain(torch, cfg, eng, device,
+                                                 **shape), **shape)
+    extras = eng._prefill_inputs
+    del eng
+    eng, cohort, m = serve_family(
+        torch, card, "[16d] whisper cohort", cfg, params, device, prompts,
+        FAM_MAX_NEW, lambda st: want({**st, "mode": "cohort"}),
+        mode="cohort", capacity=QW_CAPACITY, max_batch=FAM_MAX_BATCH)
+    kw = {"max_batch": FAM_MAX_BATCH, "extras": extras, **shape}
+    check_agreement(torch, "[16d] whisper cohort", replay_cohort(
+        torch, cfg, eng.params, prompts, cohort, ops.attention, device,
+        **kw), replay_cohort(torch, cfg, eng.params, prompts, cohort,
+                             attention_ref, device, **kw), cohort, device)
+
+
+def check_families(torch, card, device, flash_rows):
+    """Phase 16: the new kernel shapes, then each family's configs served
+    at their published widths (depth cut as ``FAM_DEPTH`` says), one model
+    on the card at a time, freed before the next. ``flash_rows``:
+    :func:`check_flash_kernel`'s entries for :func:`family_flash_cases`,
+    in order. Prints the rows it measured, with their launches, as one
+    JSON line."""
+    from repro_torch.models import init_params
+
+    from repro_torch.configs import get
+
+    cfgs = family_configs()
+    for arch, c in cfgs.items():
+        whole = get(arch).config.n_layers
+        print(f"[16] {arch}: {c.n_layers} of {whole} layers, d_model "
+              f"{c.d_model}, {c.n_heads}/{c.n_kv_heads} heads of "
+              f"{c.head_dim}, d_ff {c.d_ff}, vocab {c.vocab}"
+              + (f", {c.n_experts} experts top-{c.top_k}" if c.n_experts
+                 else "")
+              + (f", soft-cap {c.logits_softcap}" if c.logits_softcap
+                 else "")
+              + (f", {c.n_img_tokens} image positions" if c.n_img_tokens
+                 else "")
+              + (f", {c.n_enc_layers} encoder layers over {c.src_len} "
+                 "frames" if c.is_encdec else "")
+              + f", {c.param_count() / 1e9:.2f} B parameters")
+    t0 = time.perf_counter()
+    rows = family_paged_rows(torch, cfgs)
+    rows.update(zip(("flash whisper encoder", "flash whisper cross",
+                     "flash phi", "flash chameleon"), flash_rows,
+                    strict=True))
+    print(f"[16 rows] took {time.perf_counter() - t0:.1f} s", flush=True)
+    for part, arch, fn in (("a", PHI_ARCH, check_phi),
+                           ("b", GROK_ARCH, check_grok),
+                           ("c", CH_ARCH, check_chameleon),
+                           ("d", WH_ARCH, check_whisper)):
+        t0 = time.perf_counter()
+        params = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfgs[arch], torch.Generator(
+            device=device).manual_seed(SEED), device=device)
+        weights = sum(t.numel() * t.element_size() for t in leaves(params))
+        fn(torch, card, cfgs[arch], params, device, rows)
+        print(f"[16{part}] {arch} took {time.perf_counter() - t0:.1f} s, "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f}"
+              f" GiB, weights {weights / 2 ** 30:.1f} GiB; {card}",
+              flush=True)
+    del params
+    torch.cuda.empty_cache()
+    print("[16 rows] " + json.dumps(rows) + f" {card}")
+
+
 def main() -> int:
     import torch
 
@@ -2953,6 +3786,11 @@ def main() -> int:
                                     seed=SEED + 16)
     check_dense_configs(torch, card, device, flash_rows)
     lap("[15]")
+    flash_rows = check_flash_kernel(
+        torch, family_flash_cases(family_configs()), tag="[16]",
+        seed=SEED + 17)
+    check_families(torch, card, device, flash_rows)
+    lap("[16]")
     print(f"[ ] total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -42,9 +42,9 @@ class ArchSpec:
     def reduced(self) -> ModelConfig:
         """Smoke-test variant: 2 layers (the hybrid family: one block of
         its pattern), d_model ≤ 256, ≤ 4 heads, d_ff ≤ 512, vocab ≤ 512,
-        f32 — same wiring. The JAX package's ``ArchSpec.reduced`` cut for the
-        families the port runs (dense, hybrid, ssm), so tests compare like
-        with like."""
+        ≤ 4 experts of top-≤2, 2 encoder layers over 16 source frames, 4
+        image tokens, f32 — same wiring. The JAX package's
+        ``ArchSpec.reduced`` cut, so tests compare like with like."""
         cfg = self.config
         d_model = min(cfg.d_model, 256)
         n_heads = max(min(cfg.n_heads, 4), 1)
@@ -59,6 +59,13 @@ class ArchSpec:
             head_dim=d_model // n_heads,
             d_ff=min(cfg.d_ff, 512), vocab=min(cfg.vocab, 512),
             dtype=torch.float32, param_dtype=torch.float32)
+        if cfg.family == "moe":
+            kw.update(n_experts=min(cfg.n_experts, 4),
+                      top_k=min(cfg.top_k, 2))
         if cfg.family == "hybrid":
             kw.update(lru_width=d_model, local_window=64)
+        if cfg.is_encdec:
+            kw.update(n_enc_layers=2, src_len=16)
+        if cfg.family == "vlm":
+            kw.update(n_img_tokens=4)
         return cfg.with_overrides(**kw)

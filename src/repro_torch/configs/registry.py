@@ -1,5 +1,5 @@
-"""Architecture and input-shape registry. The port holds the architectures
-whose path it runs so far; ``ROADMAP.md`` lists the rest."""
+"""Architecture and input-shape registry: the JAX package's ten
+architectures."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,9 +9,13 @@ from repro_torch.configs.base import ArchSpec
 
 ARCHS: dict[str, str] = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "chameleon-34b": "repro_torch.configs.chameleon_34b",
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "smollm-360m": "repro_torch.configs.smollm_360m",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe",
+    "grok-1-314b": "repro_torch.configs.grok1_314b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
     "granite-8b": "repro_torch.configs.granite_8b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
 }
@@ -35,7 +39,7 @@ SHAPES: dict[str, InputShape] = {
 
 def get(arch: str) -> ArchSpec:
     if arch not in ARCHS:
-        raise KeyError(f"unknown arch {arch!r}; the port has {sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {arch!r}; choose from {sorted(ARCHS)}")
     return importlib.import_module(ARCHS[arch]).SPEC
 
 

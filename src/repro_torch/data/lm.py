@@ -10,8 +10,8 @@ graph's static buffers.
 
 The counterpart of ``repro.data.lm``, which draws from ``jax.random`` keys:
 the distribution is the same, the streams differ. The vlm and audio
-families' modality extras wait on those families (``ROADMAP.md``, queue 1,
-item 4).
+families' modality extras wait on the training half of those families
+(``ROADMAP.md``, queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -29,7 +29,8 @@ def lm_batch_extras(cfg: ModelConfig, generator: torch.Generator, batch: int,
     if cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family's batch extras wait on the "
-            "vlm and audio families (ROADMAP.md, queue 1, item 4)")
+            "training half of the vlm and audio families (ROADMAP.md, queue "
+            "1, item 4)")
     return {}
 
 

@@ -21,8 +21,8 @@
 //   q       [B, Q, H, Dh]   (decode: [B, H, Dh], the same memory at Q = 1)
 //   pools   [num_blocks + 1, block_size, L, Hkv, Dh]  (last block is trash)
 //   tables  [B, n_pages] int32, lengths [B] int32, out like q
-//   head_dim a multiple of 8 and at most 128; R = Q * G <= 64 rows;
-//   pools 16-byte aligned
+//   head_dim a multiple of 8 and at most 128; any Q and G; pools 16-byte
+//   aligned
 //
 // Bound. Each staged K/V element feeds ~4 flops per row, ~4 R in all (12
 // flop/byte-pair at R = 12 in bf16), far below the ~295 flop/byte at which
@@ -33,14 +33,21 @@
 // reads of the length, the table and the pages) and how much of it runs
 // one after another.
 //
-// Design. A cluster of C thread blocks of 256 threads per (slot, KV head),
-// grid (C, Hkv, B), C = min(8, ceil(n_pages * block_size / 64)) chosen on
-// the host from the table's width alone (the lengths live on the card, and
-// reading them would cost a host sync per step). Block c of the cluster
-// takes the c-th of C equal shares of the slot's live positions (a share
-// may be empty: it then holds m = -inf, l = 0) and owns all R = Q * G rows
-// of its KV head, so every K/V row is read from device memory once per
-// call, not once per query head or window row. The slot's block table is
+// Design. A cluster of C thread blocks of 256 threads per (slot, KV head,
+// row tile), grid (C, Hkv * T, B), C = min(8, ceil(n_pages * block_size /
+// 64)) chosen on the host from the table's width alone (the lengths live on
+// the card, and reading them would cost a host sync per step). The Q * G
+// rows of a KV head (row e: window position e / G, head e % G) are cut into
+// T = ceil(Q * G / 64) tiles of at most kMaxRows = 64 rows, so a window of
+// any size fits shared memory; each tile walks the same positions through
+// the block table (a window past 64 rows reads its K/V T times). A window
+// of one tile launches the untiled instantiation, the code of the body
+// before the tiles (a tiled instantiation cost a window of 12 rows 0.4 us
+// of its 17 us on an H100, PERF.md). Block c of
+// the cluster takes the c-th of C equal shares of the slot's live positions
+// (a share may be empty: it then holds m = -inf, l = 0) and owns all R rows
+// of its tile, so every K/V row is read from device memory once per call
+// and tile, not once per query head or window row. The slot's block table is
 // staged in shared memory in the same round trip as its length (tables of
 // up to kTablePages entries; wider ones are read in place, one dependent
 // round trip more: on an H100 that costs 0.00013-0.00026 ms a call at the
@@ -78,7 +85,7 @@ namespace {
 constexpr int kTile = 64;      // positions per staged tile
 constexpr int kThreads = 256;  // eight warps
 constexpr int kMaxHeadDim = 128;
-constexpr int kMaxRows = 64;   // Q * G
+constexpr int kMaxRows = 64;   // rows of Q * G one block owns (a tile)
 constexpr int kMaxCluster = 8; // the portable cluster size
 constexpr int kRankPositions = 64;  // coverage per cluster rank (host side)
 constexpr int kTablePages = 1024;   // block-table entries staged in shared
@@ -152,7 +159,10 @@ __device__ __forceinline__ float dot(const float* q, const T* k, int Dh) {
   return s[0] + s[1];
 }
 
-template <typename T>
+// kTiled: the rows of a KV head span more than one tile (Q * G > 64); the
+// untiled instantiation folds row0 = 0 and keeps the one-tile code of a
+// window that fits (decode, and verify windows of at most 64 rows)
+template <typename T, bool kTiled>
 __device__ __forceinline__ void paged_attention_body(
     const T* __restrict__ q, const T* __restrict__ k_pages,
     const T* __restrict__ v_pages, const int* __restrict__ tables,
@@ -162,11 +172,15 @@ __device__ __forceinline__ void paged_attention_body(
   cg::cluster_group cluster = cg::this_cluster();
   const int C = gridDim.x;              // the cluster spans grid axis x
   const int rank = static_cast<int>(cluster.block_rank());
-  const int h = blockIdx.y;             // KV head
-  const int b = blockIdx.z;             // slot
   const int G = H / Hkv;
-  const int R = Q * G;                  // row e: window position e / G,
-  const int tid = threadIdx.x;          // head e % G
+  const int tiles = kTiled ? (Q * G + kMaxRows - 1) / kMaxRows : 1;
+  const int h = kTiled ? blockIdx.y / tiles : blockIdx.y;  // KV head
+  const int row0 = kTiled ? (blockIdx.y - h * tiles) * kMaxRows : 0;
+  const int b = blockIdx.z;             // slot
+  // this tile's R rows: row e of the tile is row row0 + e of the window,
+  // at window position (row0 + e) / G and head (row0 + e) % G
+  const int R = kTiled ? min(kMaxRows, Q * G - row0) : Q * G;
+  const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   constexpr int kWarps = kThreads / 32;
@@ -227,13 +241,14 @@ __device__ __forceinline__ void paged_attention_body(
   __syncthreads();   // the staged table
   if (p_begin < p_end) issue(p_begin);
 
-  // q row e lives at q[b, e / G, h * G + e % G, :]
+  // q row e lives at q[b, w / G, h * G + w % G, :], w = row0 + e
   for (int e = tid; e < R * Dh; e += kThreads) {
     const int row = e / Dh;
-    const int r = row / G;
+    const int w = row0 + row;
+    const int r = w / G;
     const size_t src =
         ((static_cast<size_t>(b) * Q + r) * H + static_cast<size_t>(h) * G +
-         (row - r * G)) * Dh + (e - row * Dh);
+         (w - r * G)) * Dh + (e - row * Dh);
     qs[e] = to_float(q[src]) * scale;
     acc[e] = 0.f;
   }
@@ -249,11 +264,11 @@ __device__ __forceinline__ void paged_attention_body(
     __syncthreads();   // the tile, q, and (first tile) m, l, acc are set
 
     // scores: one thread per (row, position); row e sees positions below
-    // its own limit min(length_b - (Q-1-e/G), cover), -inf past it
+    // its own limit min(length_b - (Q-1-(row0+e)/G), cover), -inf past it
     for (int e = tid; e < R * kTile; e += kThreads) {
       const int row = e / kTile;
       const int t = e - row * kTile;
-      const int limit = min(len_b - (Q - 1 - row / G), cover);
+      const int limit = min(len_b - (Q - 1 - (row0 + row) / G), cover);
       ps[e] = t < n && t0 + t < limit ? dot(qs + row * Dh, ks + t * KS, Dh)
                                       : -INFINITY;
     }
@@ -331,37 +346,40 @@ __device__ __forceinline__ void paged_attention_body(
         l_sum = fmaf(w, lc[c], l_sum);
         a_sum = fmaf(w, ac[c], a_sum);
       }
-    const int r = row / G;
+    const int w = row0 + row;
+    const int r = w / G;
     const size_t dst =
         ((static_cast<size_t>(b) * Q + r) * H + static_cast<size_t>(h) * G +
-         (row - r * G)) * Dh + (e - row * Dh);
+         (w - r * G)) * Dh + (e - row * Dh);
     out[dst] = from_float<T>(l_sum > 0.f ? a_sum / l_sum : 0.f);
   }
   cluster.sync();   // no rank leaves while another still reads its state
 }
 
 // Decode: one query token per slot, q and out [B, H, Dh] (Q = 1).
-template <typename T>
+template <typename T, bool kTiled>
 __global__ void __launch_bounds__(kThreads) paged_attention_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pages,
     const T* __restrict__ v_pages, const int* __restrict__ tables,
     const int* __restrict__ lengths, T* __restrict__ out, int /*Q*/, int H,
     int Hkv, int Dh, int L, int block_size, int n_pages, int layer,
     float scale) {
-  paged_attention_body<T>(q, k_pages, v_pages, tables, lengths, out, 1, H,
-                          Hkv, Dh, L, block_size, n_pages, layer, scale);
+  paged_attention_body<T, kTiled>(q, k_pages, v_pages, tables, lengths, out,
+                                  1, H, Hkv, Dh, L, block_size, n_pages,
+                                  layer, scale);
 }
 
 // Verify window: Q query tokens per slot, q and out [B, Q, H, Dh].
-template <typename T>
+template <typename T, bool kTiled>
 __global__ void __launch_bounds__(kThreads) paged_attention_multi_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pages,
     const T* __restrict__ v_pages, const int* __restrict__ tables,
     const int* __restrict__ lengths, T* __restrict__ out, int Q, int H,
     int Hkv, int Dh, int L, int block_size, int n_pages, int layer,
     float scale) {
-  paged_attention_body<T>(q, k_pages, v_pages, tables, lengths, out, Q, H,
-                          Hkv, Dh, L, block_size, n_pages, layer, scale);
+  paged_attention_body<T, kTiled>(q, k_pages, v_pages, tables, lengths, out,
+                                  Q, H, Hkv, Dh, L, block_size, n_pages,
+                                  layer, scale);
 }
 
 template <typename T>
@@ -374,7 +392,10 @@ int launch(Kernel<T> kernel, const void* q, const void* k_pages,
            void* out, int B, int Q, int H, int Hkv, int Dh, int L,
            int block_size, int n_pages, int layer, float scale,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(Q * (H / Hkv), Dh, n_pages);
+  const int rows = Q * (H / Hkv);
+  const int tiles = (rows + kMaxRows - 1) / kMaxRows;
+  const size_t smem = smem_bytes<T>(rows < kMaxRows ? rows : kMaxRows, Dh,
+                                    n_pages);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -387,7 +408,7 @@ int launch(Kernel<T> kernel, const void* q, const void* k_pages,
   const int C = want < 1 ? 1 : want > kMaxCluster ? kMaxCluster
                                                   : static_cast<int>(want);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, Hkv, B);
+  cfg.gridDim = dim3(C, Hkv * tiles, B);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -408,6 +429,26 @@ int launch(Kernel<T> kernel, const void* q, const void* k_pages,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The kernel for a window (else decode, Q = 1) whose rows do (kTiled) or do
+// not span more than one tile
+template <typename T, bool kTiled>
+Kernel<T> pick(bool window) {
+  return window ? paged_attention_multi_kernel<T, kTiled>
+                : paged_attention_decode_kernel<T, kTiled>;
+}
+
+template <typename T>
+int launch_rows(bool window, const void* q, const void* k_pages,
+                const void* v_pages, const void* tables, const void* lengths,
+                void* out, int B, int Q, int H, int Hkv, int Dh, int L,
+                int block_size, int n_pages, int layer, float scale,
+                cudaStream_t s) {
+  const bool tiled = Q * (H / Hkv) > kMaxRows;
+  return launch<T>(tiled ? pick<T, true>(window) : pick<T, false>(window),
+                   q, k_pages, v_pages, tables, lengths, out, B, Q, H, Hkv,
+                   Dh, L, block_size, n_pages, layer, scale, s);
+}
+
 // window: the verify-window kernel, else the decode kernel (Q = 1). dtype:
 // 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch
 // (0 = cudaSuccess); the Python wrappers raise on anything else.
@@ -416,21 +457,21 @@ int launch_dtype(bool window, const void* q, const void* k_pages,
                  void* out, int B, int Q, int H, int Hkv, int Dh, int L,
                  int block_size, int n_pages, int layer, float scale,
                  int dtype, void* stream) {
-  if (B < 1 || B > 65535 || Q < 1 || Hkv < 1 || Hkv > 65535 || H % Hkv ||
-      Q * (H / Hkv) > kMaxRows || Dh > kMaxHeadDim || Dh % 8)
+  if (B < 1 || B > 65535 || Q < 1 || Hkv < 1 || H % Hkv ||
+      static_cast<long long>(Hkv) *
+              ((static_cast<long long>(Q) * (H / Hkv) + kMaxRows - 1) /
+               kMaxRows) > 65535 ||
+      Dh > kMaxHeadDim || Dh % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(window ? paged_attention_multi_kernel<float>
-                                : paged_attention_decode_kernel<float>,
-                         q, k_pages, v_pages, tables, lengths, out, B, Q, H,
-                         Hkv, Dh, L, block_size, n_pages, layer, scale, s);
+    return launch_rows<float>(window, q, k_pages, v_pages, tables, lengths,
+                              out, B, Q, H, Hkv, Dh, L, block_size, n_pages,
+                              layer, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(
-        window ? paged_attention_multi_kernel<__nv_bfloat16>
-               : paged_attention_decode_kernel<__nv_bfloat16>,
-        q, k_pages, v_pages, tables, lengths, out, B, Q, H, Hkv, Dh, L,
-        block_size, n_pages, layer, scale, s);
+    return launch_rows<__nv_bfloat16>(window, q, k_pages, v_pages, tables,
+                                      lengths, out, B, Q, H, Hkv, Dh, L,
+                                      block_size, n_pages, layer, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -5,8 +5,10 @@ replaces the TPU kernel ``repro.kernels.flash_attention.flash_attention``;
 the source's note gives the bound and the design. This wrapper validates the
 arguments, allocates the output with q's strides, launches on the current
 stream and counts the launch. CPU tensors go to the plain version
-(:func:`repro_torch.kernels.ref.attention_ref`); CUDA tensors go to the
-kernel, and nowhere else.
+(:func:`repro_torch.kernels.ref.attention_ref`), and so do ``meta``
+tensors, whose plain version computes shapes only (the serving layer builds
+the audio family's cache on the meta device to find its axes); CUDA tensors
+go to the kernel, and nowhere else.
 
 The kernel reads every tensor through its batch, head and sequence strides,
 so q/k/v may be ``[B, S, H, Dh]`` tensors viewed as ``[B, H, S, Dh]``
@@ -81,11 +83,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     channels. Query head h reads KV head ``h * Hkv // H``; query i and key j
     sit at positions i and j; ``window`` masks keys at or before
     ``i - window``. Returns [B, H, Sq, Dh] in q's dtype, laid out like q.
-    ``flash_attention.launches`` counts the kernel launches (CPU calls to the
-    plain version are not counted).
+    ``flash_attention.launches`` counts the kernel launches (CPU and meta
+    calls to the plain version are not counted).
     """
     check_args(q, k, v, window)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "

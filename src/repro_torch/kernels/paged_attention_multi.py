@@ -22,9 +22,6 @@ from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention import _DTYPE_CODES, check_args
 from repro_torch.kernels.ref import paged_attention_multi_ref
 
-MAX_WINDOW = 8   # Q: the verify window k + 1
-MAX_ROWS = 64    # Q * G rows one thread block owns
-
 
 @functools.cache
 def _launcher():
@@ -43,7 +40,8 @@ def paged_attention_multi(q, k_pages, v_pages, tables, lengths, layer=0):
 
     q: [B, Q, H, Dh] — per slot, the current token and Q - 1 draft
       candidates (RoPE applied), whose K/V are already in the pool at
-      positions ``lengths - Q .. lengths - 1``.
+      positions ``lengths - Q .. lengths - 1``. Any Q: the kernel cuts a KV
+      head's Q * G rows into tiles of at most 64.
     k_pages/v_pages: [num_blocks + 1, block_size, L, Hkv, Dh] physical pool
       (the trailing block is trash).
     tables: [B, n_pages] int32 block tables (possibly clamped to the live
@@ -61,10 +59,9 @@ def paged_attention_multi(q, k_pages, v_pages, tables, lengths, layer=0):
     check_args(q, k_pages, v_pages, tables, lengths, layer, window=True)
     B, Q, H, Dh = q.shape
     _, block_size, L, Hkv, _ = k_pages.shape
-    if not 1 <= Q <= MAX_WINDOW or Q * (H // Hkv) > MAX_ROWS:
-        raise ValueError(f"window Q={Q} with {H // Hkv} heads per KV head: "
-                         f"the kernel takes 1 <= Q <= {MAX_WINDOW} and at "
-                         f"most {MAX_ROWS} rows Q * G")
+    if Q < 1:
+        raise ValueError(f"window Q={Q}: the window holds at least one "
+                         "token")
     if q.device.type == "cpu":
         return paged_attention_multi_ref(q, k_pages, v_pages, tables,
                                          lengths, layer)

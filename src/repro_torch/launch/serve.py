@@ -1,9 +1,11 @@
 """CLI serving driver for the port: continuous batching over slot caches
 (the default, as in the JAX package's CLI), paged KV over the CUDA
 paged-attention kernel or the gather/scatter reference, and the legacy
-cohort drain. Every attention prefill runs the CUDA flash-attention kernel,
-the hybrid family's recurrent prefill the RG-LRU scan, and every rwkv6
-prefill and decode step the WKV scan.
+cohort drain, for all ten architectures. Every attention prefill runs the
+CUDA flash-attention kernel (whisper-tiny's encoder and cross-attention
+too), the hybrid family's recurrent prefill the RG-LRU scan, and every
+rwkv6 prefill and decode step the WKV scan. The vlm and audio families get
+the engine's zero image embeddings and source frames.
 
   python -m repro_torch.launch.serve --arch smollm-360m --mode paged \\
       --requests 8
@@ -15,6 +17,10 @@ prefill and decode step the WKV scan.
   python -m repro_torch.launch.serve --arch recurrentgemma-2b
   python -m repro_torch.launch.serve --arch rwkv6-1.6b --reduced \\
       --device cpu
+  python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b \\
+      --reduced --device cpu --mode paged
+  python -m repro_torch.launch.serve --arch whisper-tiny --reduced \\
+      --device cpu --mode cohort
 
 Weights are random, drawn from ``--seed``. ``--metrics DIR`` writes
 ``metrics.jsonl`` and ``metrics.prom``, ``--trace-dir DIR`` a

@@ -1,8 +1,10 @@
 """Attention: GQA projections, the prefill attention, chunked softmax
-attention, and the dense one-token decode against a slot-layout KV cache
-(full, or a ring for a sliding window).
+attention, cross-attention (Whisper's decoder over its encoder), and the
+dense one-token decode against a slot-layout KV cache (full, or a ring for
+a sliding window).
 
-Prefill attention (:func:`prefill_attention`) goes through
+Prefill attention (:func:`prefill_attention`, and
+:func:`cross_attention` with ``attend``) goes through
 :func:`repro_torch.kernels.ops.attention`: the CUDA flash kernel on the
 card, its plain version on the CPU. The JAX package names its Pallas flash
 kernel as the TPU-target implementation of this step and runs the chunked
@@ -39,14 +41,20 @@ def init_attn(cfg, gen: torch.Generator, d_model: int | None = None):
     }
 
 
+def kv_proj(cfg, p, kv_x):
+    """Project ``kv_x`` [B, Skv, D] to k/v [B, Skv, Hkv, Dh]."""
+    B, Skv = kv_x.shape[:2]
+    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    k = dense(p["wk"], kv_x, cfg.dtype).reshape(B, Skv, Hkv, Dh)
+    v = dense(p["wv"], kv_x, cfg.dtype).reshape(B, Skv, Hkv, Dh)
+    return k, v
+
+
 def qkv(cfg, p, x):
     """Project to q [B,S,H,Dh], k/v [B,S,Hkv,Dh]."""
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     B, S = x.shape[:2]
-    q = dense(p["wq"], x, cfg.dtype).reshape(B, S, H, Dh)
-    k = dense(p["wk"], x, cfg.dtype).reshape(B, S, Hkv, Dh)
-    v = dense(p["wv"], x, cfg.dtype).reshape(B, S, Hkv, Dh)
-    return q, k, v
+    q = dense(p["wq"], x, cfg.dtype).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    return (q, *kv_proj(cfg, p, x))
 
 
 def sdpa(q, k, v, *, q_positions, k_positions, causal: bool,
@@ -93,8 +101,8 @@ def sdpa(q, k, v, *, q_positions, k_positions, causal: bool,
 
 def prefill_attention(q, k, v, *, causal: bool, window: int | None,
                       attend=ops.attention):
-    """Self-attention over a whole prompt, positions 0 .. S-1. q: [B, S, H,
-    Dh], k/v: [B, S, Hkv, Dh] -> [B, S, H, Dh].
+    """Attention over a whole prompt, positions 0 .. S-1. q: [B, S, H,
+    Dh], k/v: [B, Skv, Hkv, Dh] -> [B, S, H, Dh].
 
     ``attend`` takes the kernels' ``[B, H, S, Dh]`` layout:
     :func:`repro_torch.kernels.ops.attention` unless the caller passes
@@ -115,6 +123,32 @@ def self_attention(cfg, p, x, positions, *, causal=True, window=None,
     out = sdpa(q, k, v, q_positions=positions, k_positions=positions,
                causal=causal, window=window, chunk=chunk)
     B, S = x.shape[:2]
+    return dense(p["wo"], out.reshape(B, S, -1), cfg.dtype)
+
+
+def cross_attention(cfg, p, x, kv_x=None, kv_cache=None, *, attend=None):
+    """Cross-attention of ``x`` [B, S, D] over k/v projected from ``kv_x``
+    (the encoder's output) or taken from a cache ``{"k", "v"}`` [B, Skv,
+    Hkv, Dh]: non-causal, every position at 0 (no RoPE, no mask).
+
+    ``attend`` (the kernels' ``[B, H, S, Dh]`` layout, e.g.
+    :func:`repro_torch.kernels.ops.attention`) runs the attention of a
+    prefill; without it the einsum :func:`sdpa` runs it, as the JAX
+    package's decode does."""
+    B, S = x.shape[:2]
+    q = dense(p["wq"], x, cfg.dtype).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    if kv_cache is not None:
+        k, v = kv_cache["k"].to(cfg.dtype), kv_cache["v"].to(cfg.dtype)
+    else:
+        k, v = kv_proj(cfg, p, kv_x)
+    if attend is not None:
+        out = prefill_attention(q, k, v, causal=False, window=None,
+                                attend=attend)
+    else:
+        zeros = torch.zeros((max(S, k.shape[1]),), dtype=torch.int32,
+                            device=x.device)
+        out = sdpa(q, k, v, q_positions=zeros[:S],
+                   k_positions=zeros[:k.shape[1]], causal=False, window=None)
     return dense(p["wo"], out.reshape(B, S, -1), cfg.dtype)
 
 

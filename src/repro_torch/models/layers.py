@@ -1,10 +1,8 @@
-"""Primitive layers: RMSNorm, RoPE, projections (with an optional bias
-``b``, the QKV bias of ``qwen2.5-3b``), the SwiGLU and GELU MLPs, tied
-embeddings. Parameters are nested dicts of tensors with the JAX package's
-names and layouts (``w`` is ``[d_in, d_out]``), so weights carry over
-unchanged. The variants other families use (LayerNorm, logit soft-capping)
-are not ported yet; ``models.transformer.require_ported`` rejects configs
-that need them.
+"""Primitive layers: RMSNorm and LayerNorm, RoPE, projections (with an
+optional bias ``b``, the QKV bias of ``qwen2.5-3b``), the SwiGLU and GELU
+MLPs, tied embeddings with grok's logit soft-cap. Parameters are nested
+dicts of tensors with the JAX package's names and layouts (``w`` is
+``[d_in, d_out]``), so weights carry over unchanged.
 
 The arithmetic follows ``repro.models.layers`` step by step — where a value
 is cast, and in which dtype a statistic is taken — because the port is held
@@ -41,12 +39,29 @@ def rms_norm(x, w, eps: float = 1e-6):
     return x * inv * (1.0 + w.to(x.dtype))
 
 
+def layer_norm(x, w, b, eps: float = 1e-5):
+    """Statistics and the affine map in f32, the result cast once to x's
+    dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dtype)
+
+
 def make_norm_params(cfg, d: int, device) -> dict:
-    return {"scale": torch.zeros((d,), dtype=cfg.param_dtype, device=device)}
+    if cfg.norm == "rmsnorm":
+        return {"scale": torch.zeros((d,), dtype=cfg.param_dtype,
+                                     device=device)}
+    return {"scale": torch.ones((d,), dtype=cfg.param_dtype, device=device),
+            "bias": torch.zeros((d,), dtype=cfg.param_dtype, device=device)}
 
 
 def apply_norm(cfg, p, x):
-    return rms_norm(x, p["scale"])
+    if cfg.norm == "rmsnorm":
+        return rms_norm(x, p["scale"])
+    return layer_norm(x, p["scale"], p["bias"])
 
 
 # ---------------------------------------------------------------------------
@@ -112,5 +127,14 @@ def embed(cfg, p, tokens):
     return p["table"][tokens].to(cfg.dtype)
 
 
+def softcap(cfg, logits):
+    """grok's soft-cap ``c * tanh(logits / c)`` with ``c =
+    cfg.logits_softcap``, in the logits' dtype; the identity at 0."""
+    if cfg.logits_softcap > 0:
+        c = cfg.logits_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
 def unembed(cfg, p, x):
-    return x @ p["table"].to(cfg.dtype).T
+    return softcap(cfg, x @ p["table"].to(cfg.dtype).T)

@@ -1,10 +1,15 @@
-"""Block-native paged decode and verify steps for the dense family.
+"""Block-native paged decode and verify steps for the full-attention KV
+families (dense, vlm, moe: ``PAGED_FAMILIES``).
 
 Per layer, the new tokens' K/V are written straight into each slot's tail
 block(s), then attention walks the block table itself through ``attend``
 (the CUDA kernel on the card, its plain version on the CPU). Everything
 outside attention — norms, QKV/output projections, the MLP — is batched
 over slots and window rows. Decode is the one-token window of the verify.
+The MoE layer routes every slot and every window row as a group of its own,
+as the reference's ``vmap`` over them does: expert capacity sees one token,
+so a neighbour's token never displaces this one's, and the verify drops
+exactly what one-token-at-a-time decode would.
 
 The pool is ``{"k", "v"}`` of layout ``[num_blocks + 1, block_size, L, Hkv,
 Dh]``. Where the JAX package returns a new pool from a jitted function with
@@ -19,9 +24,8 @@ from __future__ import annotations
 
 from repro_torch.models.attention import qkv
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (apply_norm, dense, embed, mlp, rope,
-                                       unembed)
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.layers import apply_norm, dense, embed, rope, unembed
+from repro_torch.models.transformer import KV_FAMILIES, ffn, layer_params
 
 
 def scatter_tokens(pool_data, writes, blk, off):
@@ -94,10 +98,9 @@ def paged_verify_step(cfg: ModelConfig, params, toks, pool_kv, tables, blks,
     several writes to one position (dead slots, positions past coverage);
     only garbage lands there.
     """
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"paged decode for family={cfg.family!r}: the port has the dense "
-            "branch only (ROADMAP.md, queue 1, remaining model families)")
+    if cfg.family not in KV_FAMILIES:
+        raise ValueError(f"paged decode needs one of {KV_FAMILIES}, got "
+                         f"family={cfg.family!r}")
     B, Q = toks.shape
     x = embed(cfg, params["embed"], toks)                  # [B, Q, D]
     pk, pv = pool_kv["k"], pool_kv["v"]
@@ -111,6 +114,7 @@ def paged_verify_step(cfg: ModelConfig, params, toks, pool_kv, tables, blks,
                        {"kv": {"k": k, "v": v}}, blks, offs)
         a = attend(q.contiguous(), pk, pv, tables, lengths, layer)
         x = x + dense(lp["attn"]["wo"], a.reshape(B, Q, -1), cfg.dtype)
-        x = x + mlp(cfg, lp["mlp"], apply_norm(cfg, lp["norm2"], x))
+        x = x + ffn(cfg, lp, apply_norm(cfg, lp["norm2"], x),
+                    moe_per_token=True)
     x = apply_norm(cfg, params["final_norm"], x)
     return unembed(cfg, params["embed"], x), pool_kv

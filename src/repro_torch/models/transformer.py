@@ -1,29 +1,45 @@
-"""The decoder: parameter init, the training forward and loss, prefill and
-the decode cache, for the dense, hybrid (RecurrentGemma) and ssm (RWKV-6)
-families.
+"""The model: parameter init, the training forward and loss, prefill and
+the decode cache, for every family of the JAX package: dense, moe, hybrid
+(RecurrentGemma), ssm (RWKV-6), vlm (early fusion of image embeddings) and
+audio (Whisper's encoder-decoder).
 
 * ``init_params(cfg, generator, device=)`` — dict tree with layer-stacked
   weights (the JAX package's tree, leaf for leaf): ``layers`` ``[L, ...]``
-  for dense and ssm; ``blocks`` (one entry per position of the block
-  pattern, stacked over ``n_layers // len(pattern)`` blocks) and the list
-  ``rem`` of trailing layers for hybrid;
+  for dense, moe, vlm and ssm (a moe layer holds ``moe`` in place of
+  ``mlp``); ``blocks`` (one entry per position of the block pattern,
+  stacked over ``n_layers // len(pattern)`` blocks) and the list ``rem`` of
+  trailing layers for hybrid; ``enc_layers``, ``enc_norm`` and the decoder
+  ``layers`` (self-attention, ``cross``-attention, three norms) for
+  audio;
 * ``forward(cfg, params, tokens)`` and ``loss_fn(cfg, params, batch)`` —
   the full-sequence training path: logits (or the final hidden states) and
   the next-token cross-entropy, taken chunk by chunk (:func:`chunked_ce`);
 * ``prefill(cfg, params, tokens, capacity)`` — full-prompt forward that also
   materializes the decode cache;
-* ``init_cache(cfg, batch, capacity, device=)`` — an empty cache;
+* ``init_cache(cfg, batch, capacity, device=)`` — an empty cache (audio:
+  with the cross-attention K/V of its encoded ``src_embeds``);
+* ``cache_batch_axes`` / ``cache_capacity_axes`` — each cache leaf's batch
+  and capacity axis, found by building ``init_cache`` on the ``meta``
+  device at two sizes, as the JAX package finds them by ``eval_shape``;
 * ``decode_step(cfg, params, tokens, cache)`` — one token per slot against
   that cache.
 
 The JAX package scans over the stacked layers; here a Python loop walks them
-(:func:`layer_params` gives layer ``i``'s views). Prefill attention, the
-prefill RG-LRU recurrence and every WKV recurrence (prefill and decode) go
-through :mod:`repro_torch.kernels.ops`: the CUDA kernels on the card, their
-plain versions on the CPU. Other families raise ``NotImplementedError``
-(``ROADMAP.md``).
+(:func:`layer_params` gives layer ``i``'s views). Every prefill attention
+(the decoder's, whisper's encoder and its cross-attention over the encoder),
+the prefill RG-LRU recurrence and every WKV recurrence (prefill and decode)
+go through :mod:`repro_torch.kernels.ops`: the CUDA kernels on the card,
+their plain versions on the CPU. Decode attends through the einsum ``sdpa``,
+as the reference does.
 
-The training path launches none of those kernels, by the JAX package's own
+The MoE family routes jointly in a prefill and in a ``decode_step`` on a
+batch, as the reference's calls do; ``decode_step(moe_per_token=True)``
+gives each slot its own routing group, as the reference's vmap over slots
+gives it (:mod:`repro_torch.models.moe`).
+
+The training path (the dense, hybrid and ssm families; the others raise
+:func:`require_trainable`'s ``NotImplementedError``) launches none of
+those kernels, by the JAX package's own
 design and not as a fallback: its ``forward`` attends through the einsum
 ``sdpa``, runs the RG-LRU as a ``lax.scan`` and WKV as ``_wkv_scan``, and
 reaches no ``pallas_call``; and neither package has a derivative for the
@@ -48,41 +64,55 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models import rglru, rwkv6
-from repro_torch.models.attention import (decode_self_attention, init_attn,
-                                         init_kv_cache, prefill_attention,
-                                         qkv, self_attention)
+from repro_torch.models import moe, rglru, rwkv6
+from repro_torch.models.attention import (cross_attention,
+                                         decode_self_attention, init_attn,
+                                         init_kv_cache, kv_proj,
+                                         prefill_attention, qkv,
+                                         self_attention)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_norm, dense, embed, init_embed,
                                        init_mlp, make_norm_params, mlp, rope,
-                                       unembed)
+                                       softcap, unembed)
 
 Params = Any
 # parameter leaves the JAX package reads in f32 whatever cfg.dtype is
 F32_LEAVES = ("lam", "w0")
-FAMILIES = ("dense", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
+# the decoder-only families whose cache is one stacked KV tree
+KV_FAMILIES = ("dense", "vlm", "moe")
+TRAIN_FAMILIES = ("dense", "hybrid", "ssm")
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Reject configs the port cannot run yet: it has the dense, hybrid and
-    ssm families with RMSNorm, SwiGLU or GELU and no logit soft-capping; the
-    dense family with or without QKV bias and with full or sliding-window
-    attention (``cfg.window``; the hybrid family's local window is its
-    own). That is ``smollm-360m``, ``qwen2.5-3b``, ``granite-8b``,
-    ``minicpm-2b`` and their ``long_500k`` variants, ``recurrentgemma-2b``
-    and ``rwkv6-1.6b``."""
+    """Reject what the port cannot run: a family, norm, activation or block
+    kind the JAX package does not have either, or a sliding ``window`` on a
+    family other than dense (the hybrid family's local window is its own;
+    the reference passes ``cfg.window`` to the moe and vlm layers too, and
+    no configuration or test of either package runs that)."""
     if (cfg.family not in FAMILIES
             or (cfg.window is not None and cfg.family != "dense")
-            or cfg.norm != "rmsnorm" or cfg.act not in ("swiglu", "gelu")
-            or cfg.logits_softcap
+            or cfg.norm not in ("rmsnorm", "layernorm")
+            or cfg.act not in ("swiglu", "gelu")
             or not set(cfg.block_pattern) <= {"rec", "attn"}):
         raise NotImplementedError(
             f"{cfg.name}: family={cfg.family!r} window={cfg.window!r} "
-            f"norm={cfg.norm!r} act={cfg.act!r} qkv_bias={cfg.qkv_bias} "
-            f"logits_softcap={cfg.logits_softcap} "
-            f"block_pattern={cfg.block_pattern}: the port runs the dense, "
-            "hybrid and ssm RMSNorm families only, a window on the dense "
-            "family only (ROADMAP.md, queue 1, remaining model families)")
+            f"norm={cfg.norm!r} act={cfg.act!r} "
+            f"block_pattern={cfg.block_pattern}: the port takes a window on "
+            "the dense family only (ROADMAP.md, queue 1)")
+
+
+def require_trainable(cfg: ModelConfig) -> None:
+    """The training path has the dense, hybrid and ssm families. The moe,
+    vlm and audio families serve but do not train yet: ``loss_fn``'s MoE
+    aux losses and the vlm/audio batch extras are ROADMAP.md's queue 1,
+    item 4 (the training half)."""
+    require_ported(cfg)
+    if cfg.family not in TRAIN_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family (loss_fn's MoE "
+            "aux losses, the vlm and audio batch extras) is not ported "
+            "(ROADMAP.md, queue 1, item 4: the training half)")
 
 
 def layer_params(layers: Params, i: int) -> Params:
@@ -122,8 +152,19 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, kind: str) -> Params:
         p["rec"] = rglru.init_recurrent_block(cfg, gen)
     else:
         p["attn"] = init_attn(cfg, gen)
+    if kind == "moe":
+        p["moe"] = moe.init_moe(cfg, gen)
+        return p
+    if kind == "encdec":
+        p["cross"] = init_attn(cfg, gen)
+        p["norm3"] = make_norm_params(cfg, cfg.d_model, gd)
     p["mlp"] = init_mlp(cfg, gen)
     return p
+
+
+def _layer_kind(cfg: ModelConfig) -> str:
+    return {"dense": "attn", "vlm": "attn", "moe": "moe", "ssm": "rwkv",
+            "audio": "encdec"}[cfg.family]
 
 
 def _hybrid_shape(cfg: ModelConfig) -> tuple[tuple[str, ...], int, int]:
@@ -153,8 +194,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
         params["rem"] = [_init_layer(cfg, generator, pat[i % len(pat)])
                          for i in range(rem)]
     else:
-        kind = "rwkv" if cfg.family == "ssm" else "attn"
-        params["layers"] = _stack([_init_layer(cfg, generator, kind)
+        if cfg.family == "audio":
+            params["enc_layers"] = _stack([
+                _init_layer(cfg, generator, "attn")
+                for _ in range(cfg.n_enc_layers)])
+            params["enc_norm"] = make_norm_params(cfg, cfg.d_model, gd)
+        params["layers"] = _stack([_init_layer(cfg, generator,
+                                               _layer_kind(cfg))
                                    for _ in range(cfg.n_layers)])
     return tree_to(params, device=dev)
 
@@ -246,8 +292,9 @@ def forward(cfg: ModelConfig, params: Params, tokens, *,
     """tokens [B, S] -> (logits [B, S, V], aux dict); with
     ``return_hidden=True`` the final-norm'd hidden states [B, S, D] instead
     of the logits (what :func:`chunked_ce` reads). ``aux`` stays empty: it
-    holds the MoE family's losses, which the port does not run yet."""
-    require_ported(cfg)
+    holds the MoE family's losses, whose training path is not ported
+    (:func:`require_trainable`)."""
+    require_trainable(cfg)
     x = _embed_rows(cfg, params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     if cfg.family == "ssm":
@@ -276,7 +323,8 @@ def chunked_ce(cfg: ModelConfig, params: Params, x, labels,
     """Mean next-token cross-entropy without the whole ``[B, S, V]``
     logits: ``chunk`` positions at a time (all S when S is not a multiple
     of it), each chunk's logits in f32 — the embedding table and the hidden
-    states widened, as the JAX package's ``preferred_element_type`` asks."""
+    states widened, as the JAX package's ``preferred_element_type`` asks —
+    soft-capped as :func:`~repro_torch.models.layers.unembed` caps them."""
     B, S, _ = x.shape
     table = params["embed"]["table"].float()
     chunk = min(chunk, S)
@@ -284,7 +332,7 @@ def chunked_ce(cfg: ModelConfig, params: Params, x, labels,
         chunk = S
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(0, S, chunk):
-        logits = x[:, c:c + chunk].float() @ table.T
+        logits = softcap(cfg, x[:, c:c + chunk].float() @ table.T)
         tgt = torch.gather(logits, -1, labels[:, c:c + chunk, None].long())
         total = total + torch.sum(torch.logsumexp(logits, dim=-1)
                                   - tgt[..., 0])
@@ -302,19 +350,76 @@ def loss_fn(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
 # Prefill: full-sequence forward that also materializes the decode cache
 # ---------------------------------------------------------------------------
 
-def _attn_layer_kv(cfg, p, x, positions, *, window, attend):
-    """One decoder layer over the whole prompt; also returns its roped k/v.
-    The attention is :func:`~repro_torch.models.attention.prefill_attention`
-    through ``attend``."""
+def ffn(cfg, p, hn, *, moe_per_token: bool = False):
+    """A layer's feed-forward block on its normed input: the MLP, or the
+    MoE layer (routed per token with ``moe_per_token``, else jointly)."""
+    if "moe" in p:
+        return moe.moe_mlp(cfg, p["moe"], hn, per_token=moe_per_token)[0]
+    return mlp(cfg, p["mlp"], hn)
+
+
+def _self_attn_kv(cfg, p, x, positions, *, window, attend, causal=True):
+    """The residual stream after one layer's self-attention over the whole
+    sequence, and the layer's roped k/v. The attention is
+    :func:`~repro_torch.models.attention.prefill_attention` through
+    ``attend``."""
     hn = apply_norm(cfg, p["norm1"], x)
     q, k, v = qkv(cfg, p["attn"], hn)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = prefill_attention(q, k, v, causal=True, window=window,
+    out = prefill_attention(q, k, v, causal=causal, window=window,
                             attend=attend)
     B, S = x.shape[:2]
-    h = x + dense(p["attn"]["wo"], out.reshape(B, S, -1), cfg.dtype)
-    return h + mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], h)), (k, v)
+    return x + dense(p["attn"]["wo"], out.reshape(B, S, -1), cfg.dtype), \
+        (k, v)
+
+
+def _attn_layer_kv(cfg, p, x, positions, *, window, attend, causal=True):
+    """One decoder (or, non-causal, encoder) layer over the whole sequence;
+    also returns its roped k/v."""
+    h, kv = _self_attn_kv(cfg, p, x, positions, window=window,
+                          attend=attend, causal=causal)
+    return h + ffn(cfg, p, apply_norm(cfg, p["norm2"], h)), kv
+
+
+def _encdec_layer_kv(cfg, p, x, enc, positions, *, attend):
+    """One Whisper decoder layer over the whole prompt: causal
+    self-attention, cross-attention over the encoder's output ``enc``, the
+    MLP. Returns (x, its self-attention k/v, its cross-attention k/v)."""
+    h, kv = _self_attn_kv(cfg, p, x, positions, window=cfg.window,
+                          attend=attend)
+    ck, cv = kv_proj(cfg, p["cross"], enc)
+    h = h + cross_attention(cfg, p["cross"], apply_norm(cfg, p["norm2"], h),
+                            kv_cache={"k": ck, "v": cv}, attend=attend)
+    return h + mlp(cfg, p["mlp"], apply_norm(cfg, p["norm3"], h)), kv, \
+        (ck, cv)
+
+
+def _merge_image_embeds(x, image_embeds, image_pos):
+    """Early fusion: row ``b``'s embeddings at ``image_pos[b]`` are replaced
+    by ``image_embeds[b]`` (cast to x's dtype)."""
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x.index_put((rows, image_pos.long()), image_embeds.to(x.dtype))
+
+
+def _encode(cfg, params, src_embeds, *, attend):
+    """Whisper's encoder: non-causal self-attention layers over the source
+    frames at positions 0 .. src_len - 1, then its final norm."""
+    x = src_embeds.to(cfg.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp in unstack(params["enc_layers"], cfg.n_enc_layers):
+        x, _ = _attn_layer_kv(cfg, lp, x, positions, window=None,
+                              attend=attend, causal=False)
+    return apply_norm(cfg, params["enc_norm"], x)
+
+
+def _cross_cache(cfg, params, enc):
+    """Every decoder layer's cross-attention k/v of the encoder's output,
+    stacked ``{"k", "v"}: [L, B, src_len, Hkv, Dh]``."""
+    kvs = [kv_proj(cfg, lp["cross"], enc)
+           for lp in unstack(params["layers"], cfg.n_layers)]
+    return {"k": torch.stack([k for k, _ in kvs]),
+            "v": torch.stack([v for _, v in kvs])}
 
 
 def _kv_to_cache(k, v, capacity, window=None):
@@ -370,12 +475,14 @@ def _rwkv_layer(cfg, p, x, state=None, *, wkv):
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens, capacity: int, *,
+            image_embeds=None, image_pos=None, src_embeds=None,
             length: int | None = None, attend=ops.attention,
             scan=ops.rglru, wkv=ops.wkv6):
     """tokens [B, S] -> (last-token logits [B, 1, V], decode cache).
 
-    The cache is laid out as :func:`init_cache` lays it out: dense
-    ``{"kv": {"k", "v"}: [L, B, capacity, Hkv, Dh], "idx"}``; hybrid
+    The cache is laid out as :func:`init_cache` lays it out: dense, moe and
+    vlm ``{"kv": {"k", "v"}: [L, B, capacity, Hkv, Dh], "idx"}``; audio the
+    same plus ``"cross": {"k", "v"}: [L, B, src_len, Hkv, Dh]``; hybrid
     ``{"blocks", "rem", "idx"}``, whose attention layers keep a ring of
     ``min(capacity, local_window)`` positions and whose recurrent layers
     keep ``{"h", "conv"}``; ssm ``{"state": {"tm_shift", "cm_shift", "S"},
@@ -384,11 +491,17 @@ def prefill(cfg: ModelConfig, params: Params, tokens, capacity: int, *,
     positions, as a ring (absolute position ``p`` at slot ``p % capacity``)
     when ``capacity == window``.
 
-    ``length`` (≤ S, dense only) marks the prompt as right-padded: logits are
-    taken at position ``length - 1`` and the cache resumes from position
-    ``length``. Pad positions are causally masked, so the valid outputs are
-    unchanged; a recurrent state would fold the pad tokens in, so the hybrid
-    and ssm families refuse it, as the JAX package's docstring does.
+    vlm: ``image_embeds`` [B, n, D] replace the token embeddings at
+    ``image_pos`` [B, n] (early fusion). audio: ``src_embeds`` [B, src_len,
+    D] (the stubbed frontend's frames) run through the encoder, which every
+    decoder layer cross-attends.
+
+    ``length`` (≤ S) marks the prompt as right-padded: logits are taken at
+    position ``length - 1`` and the cache resumes from position ``length``.
+    Pad positions are causally masked, so the valid outputs are unchanged; a
+    recurrent state would fold the pad tokens in, so the hybrid and ssm
+    families refuse it, as the JAX package's docstring does (its MoE
+    capacity grows with the pads, so the engine never pads an moe prompt).
 
     ``attend``, ``scan`` and ``wkv`` run the prefill attention (``[B, H, S,
     Dh]`` layout), the RG-LRU recurrence and the WKV recurrence: the
@@ -398,19 +511,21 @@ def prefill(cfg: ModelConfig, params: Params, tokens, capacity: int, *,
     require_ported(cfg)
     B, S = tokens.shape
     x = embed(cfg, params["embed"], tokens)
+    if cfg.family == "vlm" and image_embeds is not None:
+        x = _merge_image_embeds(x, image_embeds, image_pos)
     positions = torch.arange(S, device=tokens.device)
     if cfg.family in ("hybrid", "ssm") and length is not None:
         raise ValueError(f"prefill(length=) pads the prompt, which the "
                          f"{cfg.family} family's recurrent state would "
                          "absorb")
+    idx = S if length is None else int(length)
     if cfg.family == "ssm":
         states = []
         for i in range(cfg.n_layers):
             x, st = _rwkv_layer(cfg, layer_params(params["layers"], i), x,
                                 wkv=wkv)
             states.append(st)
-        cache = {"state": _stack(states), "idx": S}
-        idx = S
+        cache = {"state": _stack(states), "idx": idx}
     elif cfg.family == "hybrid":
         win = min(capacity, cfg.local_window)
         pat, nb, _ = _hybrid_shape(cfg)
@@ -429,36 +544,61 @@ def prefill(cfg: ModelConfig, params: Params, tokens, capacity: int, *,
             else:
                 rem.append(st)
         cache = {"blocks": {key: _stack(sts) for key, sts in blocks.items()},
-                 "rem": rem, "idx": S}
-        idx = S
+                 "rem": rem, "idx": idx}
     else:
-        idx = S if length is None else int(length)
+        if cfg.family == "audio":
+            if src_embeds is None:
+                raise ValueError("the audio family's prefill needs "
+                                 "src_embeds")
+            enc = _encode(cfg, params, src_embeds, attend=attend)
+            cross = []
         ks, vs = [], []
         for i in range(cfg.n_layers):
-            x, (k, v) = _attn_layer_kv(cfg, layer_params(params["layers"], i),
-                                       x, positions, window=cfg.window,
-                                       attend=attend)
+            lp = layer_params(params["layers"], i)
+            if cfg.family == "audio":
+                x, (k, v), ckv = _encdec_layer_kv(cfg, lp, x, enc, positions,
+                                                  attend=attend)
+                cross.append(ckv)
+            else:
+                x, (k, v) = _attn_layer_kv(cfg, lp, x, positions,
+                                           window=cfg.window, attend=attend)
             k, v = _kv_to_cache(k, v, capacity, cfg.window)
             ks.append(k)
             vs.append(v)
         cache = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)},
                  "idx": idx}
+        if cfg.family == "audio":
+            cache["cross"] = {"k": torch.stack([k for k, _ in cross]),
+                              "v": torch.stack([v for _, v in cross])}
     x = apply_norm(cfg, params["final_norm"], x[:, idx - 1:idx])
     return unembed(cfg, params["embed"], x), cache
 
 
+def _cache_device(device) -> torch.device:
+    """``resolve_device``, and the ``meta`` device, on which
+    :func:`cache_batch_axes` builds caches of shapes only."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)
+
+
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, *,
-               device: str | torch.device = "cuda") -> Params:
-    """Empty decode cache in ``cfg.dtype``: dense ``{"kv": {"k", "v"},
-    "idx": 0}`` with k/v ``[L, batch, capacity, Hkv, Dh]``; hybrid
-    ``{"blocks", "rem", "idx": 0}`` with each block leaf stacked ``[n_blocks,
-    batch, ...]``: attention rings k/v ``[batch, min(capacity,
+               device: str | torch.device = "cuda", src_embeds=None,
+               params=None, attend=ops.attention) -> Params:
+    """Empty decode cache in ``cfg.dtype``: dense, moe and vlm ``{"kv":
+    {"k", "v"}, "idx": 0}`` with k/v ``[L, batch, capacity, Hkv, Dh]``;
+    audio the same plus ``"cross"``, the cross-attention k/v ``[L, B,
+    src_len, Hkv, Dh]`` of ``src_embeds`` [B, src_len, D] run through the
+    encoder of ``params`` (its attention through ``attend``); hybrid
+    ``{"blocks", "rem", "idx": 0}`` with each block leaf stacked
+    ``[n_blocks, batch, ...]``: attention rings k/v ``[batch, min(capacity,
     local_window), Hkv, Dh]``, recurrent state h ``[batch, R]`` and conv
     ``[batch, conv1d_width - 1, R]``; ssm ``{"state", "idx": 0}`` with
     ``tm_shift``/``cm_shift`` ``[L, batch, D]`` and S ``[L, batch, H, Dh,
-    Dh]`` in f32 (``capacity`` unused)."""
+    Dh]`` in f32 (``capacity`` unused). ``device="meta"`` builds the shapes
+    only (the kernels' wrappers take meta tensors to their plain
+    versions)."""
     require_ported(cfg)
-    dev = resolve_device(device)
+    dev = _cache_device(device)
     if cfg.family == "ssm":
         st = rwkv6.init_rwkv_state(cfg, cfg.n_layers * batch, device=dev)
         return {"state": {k: t.reshape(cfg.n_layers, batch, *t.shape[1:])
@@ -483,27 +623,85 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, *,
                         for i in range(rem)],
                 "idx": 0}
     kv = init_kv_cache(cfg, cfg.n_layers * batch, capacity, device=dev)
-    return {"kv": {name: t.reshape(cfg.n_layers, batch, *t.shape[1:])
-                   for name, t in kv.items()},
-            "idx": 0}
+    cache = {"kv": {name: t.reshape(cfg.n_layers, batch, *t.shape[1:])
+                    for name, t in kv.items()},
+             "idx": 0}
+    if cfg.family == "audio":
+        if src_embeds is None or params is None:
+            raise ValueError("the audio family's cache needs src_embeds and "
+                             "params")
+        cache["cross"] = _cross_cache(
+            cfg, params, _encode(cfg, params, src_embeds, attend=attend))
+    return cache
+
+
+def _meta_cache(cfg, batch, capacity, params, src_len):
+    """:func:`init_cache` on the meta device (audio: with meta copies of
+    ``params`` and meta source frames of ``src_len``)."""
+    src = meta_params = None
+    if cfg.family == "audio":
+        if params is None:
+            raise ValueError("the audio family's cache axes need params")
+        meta_params = tree_to(params, device="meta")
+        src = torch.empty((batch, src_len or cfg.src_len, cfg.d_model),
+                          dtype=cfg.dtype, device="meta")
+    return init_cache(cfg, batch, capacity, device="meta", src_embeds=src,
+                      params=meta_params)
+
+
+def _diff_axes(a, b):
+    """The one axis along which each tensor leaf of ``a`` and ``b`` differs,
+    ``-1`` where none does (and for the non-tensor ``idx``)."""
+    if isinstance(a, dict):
+        return {k: _diff_axes(a[k], b[k]) for k in a}
+    if isinstance(a, list):
+        return [_diff_axes(x, y) for x, y in zip(a, b)]
+    if not isinstance(a, torch.Tensor):
+        return -1
+    diff = [i for i, (x, y) in enumerate(zip(a.shape, b.shape)) if x != y]
+    if len(diff) > 1:
+        raise AssertionError(f"two axes differ: {a.shape} {b.shape}")
+    return diff[0] if diff else -1
+
+
+def cache_batch_axes(cfg: ModelConfig, capacity: int, *, params=None,
+                     src_len: int | None = None) -> Params:
+    """Tree (the structure of :func:`init_cache`'s output) giving the batch
+    axis of every cache leaf, ``-1`` for batch-invariant leaves (``idx``).
+    Found as the JAX package finds it: :func:`init_cache` on the ``meta``
+    device at batch 1 and 2, the shapes diffed. The audio family needs
+    ``params`` (its cache runs the encoder)."""
+    return _diff_axes(_meta_cache(cfg, 1, capacity, params, src_len),
+                      _meta_cache(cfg, 2, capacity, params, src_len))
+
+
+def cache_capacity_axes(cfg: ModelConfig, capacity: int, *, params=None,
+                        src_len: int | None = None) -> Params:
+    """Tree giving the *capacity* axis of every cache leaf, ``-1`` for
+    leaves that do not grow with the KV capacity (``idx``, recurrent state,
+    cross-attention caches, rings once the window saturates): the shapes
+    of :func:`init_cache` at ``capacity`` and ``2 * capacity`` diffed."""
+    return _diff_axes(_meta_cache(cfg, 1, capacity, params, src_len),
+                      _meta_cache(cfg, 1, 2 * capacity, params, src_len))
 
 
 # ---------------------------------------------------------------------------
-# Decode: one token per slot against the dense cache
+# Decode: one token per slot against the cache
 # ---------------------------------------------------------------------------
 
 def decode_step(cfg: ModelConfig, params: Params, tokens, cache, *,
-                wkv=ops.wkv6):
+                wkv=ops.wkv6, moe_per_token: bool = False):
     """tokens [B, 1] -> (logits [B, 1, V], cache).
 
     ``cache["idx"]`` is the absolute position of this token: one for the
     batch, or a ``[B]`` tensor, one per slot (the slot layout of
     :func:`repro_torch.serve.batch.init_slot_cache`). Every cache leaf is
-    written in place; the returned cache holds them and ``idx + 1``. The
-    hybrid family's attention layers, and a dense config with ``window``,
-    write their rings at ``idx % capacity``; the ssm family's WKV step runs
-    through ``wkv`` (the kernels' dispatch unless the caller passes the
-    plain version).
+    written in place (the audio family's ``cross`` is read only); the
+    returned cache holds them and ``idx + 1``. The hybrid family's attention
+    layers, and a dense config with ``window``, write their rings at ``idx %
+    capacity``; the ssm family's WKV step runs through ``wkv`` (the kernels'
+    dispatch unless the caller passes the plain version). The MoE family
+    routes the batch jointly, or each slot alone with ``moe_per_token``.
     """
     require_ported(cfg)
     B = tokens.shape[0]
@@ -539,8 +737,18 @@ def decode_step(cfg: ModelConfig, params: Params, tokens, cache, *,
             x = x + decode_self_attention(
                 cfg, lp["attn"], hn, {"k": kv["k"][i], "v": kv["v"][i]}, idx,
                 window=cfg.window)
-            x = x + mlp(cfg, lp["mlp"], apply_norm(cfg, lp["norm2"], x))
+            if cfg.family == "audio":
+                cross = layer_params(cache["cross"], i)
+                x = x + cross_attention(cfg, lp["cross"],
+                                        apply_norm(cfg, lp["norm2"], x),
+                                        kv_cache=cross)
+                x = x + mlp(cfg, lp["mlp"], apply_norm(cfg, lp["norm3"], x))
+            else:
+                x = x + ffn(cfg, lp, apply_norm(cfg, lp["norm2"], x),
+                            moe_per_token=moe_per_token)
         new_cache = {"kv": kv}
+        if cfg.family == "audio":
+            new_cache["cross"] = cache["cross"]
     x = apply_norm(cfg, params["final_norm"], x)
     return unembed(cfg, params["embed"], x), {**new_cache,
                                               "idx": cache["idx"] + 1}

@@ -12,11 +12,12 @@ The device-side ops (:func:`write_prefill`, :func:`tail_targets`,
 verify step in :mod:`repro_torch.models.paged` —, :func:`copy_block`, and
 the ``kv_impl="reference"`` read path's :func:`gather_pages`,
 :func:`slice_token` and :func:`scatter_token`) are PyTorch and write the
-pool in place where the JAX package returns a new one. The continuous mode and the speculative draft keep a dense *slot
-layout* instead (:func:`init_slot_cache`, :func:`write_slot`,
-:func:`gather_slot`): every slot reserves a whole cache of the model's own
-tree (dense k/v ``[L, max_batch, capacity, Hkv, Dh]``; the hybrid family's
-``blocks``/``rem`` of rings and recurrent state; the ssm family's
+pool in place where the JAX package returns a new one. The continuous
+mode and the speculative draft keep a dense *slot layout* instead
+(:func:`init_slot_cache`, :func:`write_slot`, :func:`gather_slot`): every
+slot reserves a whole cache of the model's own tree (k/v ``[L, max_batch,
+capacity, Hkv, Dh]``, and the audio family's ``cross`` k/v; the hybrid
+family's ``blocks``/``rem`` of rings and recurrent state; the ssm family's
 ``state`` of token shifts and WKV state matrices) with a per-slot ``idx``
 vector. The block *allocator* (:class:`BlockAllocator`) and the
 shared-prefix index (:class:`PrefixIndex`) are host-side numpy, copied from
@@ -25,10 +26,12 @@ prefix alias the same physical block from several slots' tables, and
 :meth:`BlockAllocator.fork_for_write` forks a shared tail block into a fresh
 exclusive one before any slot appends to it.
 
-Only the attention-KV layout ``{"kv": {"k", "v"}}`` is paged, and the slot
-axes of the two slot layouts are written out (``SLOT_AXES``); the JAX
-package's generic axis discovery (``cache_batch_axes`` /
-``cache_capacity_axes``) waits until a family needs it.
+Every leaf's slot axis is found as the JAX package finds it
+(:func:`slot_axes`, from :func:`repro_torch.models.cache_batch_axes`).
+:class:`BlockPool` checks with the capacity axes as well that every
+per-token leaf has a (batch, capacity) axis pair, which leaves the
+attention-KV layout ``{"kv": {"k", "v"}}`` of the dense, vlm and moe
+families; the device ops here are written for that layout.
 """
 from __future__ import annotations
 
@@ -37,12 +40,14 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.models.config import ModelConfig
 # scatter_tokens lives beside the verify step that writes with it; the JAX
 # package keeps it here
 from repro_torch.models.paged import scatter_tokens  # noqa: F401
-from repro_torch.models.transformer import init_cache
+from repro_torch.models.transformer import (cache_batch_axes,
+                                            cache_capacity_axes, init_cache)
 
 
 def write_prefill(pool_data, request_cache, table, *, block_size: int):
@@ -147,58 +152,70 @@ def copy_block(pool_data, src: int, dst: int):
     return pool_data
 
 
-# slot axis of each per-slot subtree of a slot-layout cache, written out
-# where the JAX package finds it by abstract evaluation
-# (``repro.models.cache_batch_axes``): the layer- or block-stacked leaves
-# (dense ``kv``, hybrid ``blocks``, ssm ``state``) carry the slot on axis 1,
-# the hybrid family's ``rem`` leaves on axis 0
-SLOT_AXES = {"kv": 1, "blocks": 1, "rem": 0, "state": 1}
+def slot_axes(cfg: ModelConfig, capacity: int, *, params=None,
+              src_len: int | None = None):
+    """Slot-axis tree of the slot layout:
+    :func:`repro_torch.models.cache_batch_axes` with the per-slot ``idx``
+    vector on axis 0 instead of the batch-invariant ``-1``. The audio
+    family needs ``params`` (its cache runs the encoder)."""
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        return max(t, 0)
+
+    return walk(cache_batch_axes(cfg, capacity, params=params,
+                                 src_len=src_len))
 
 
-def _map_slots(fn, slot_cache, *others):
+def _map_slots(fn, slot_cache, axes, *others):
     """``fn(leaf, slot_axis, *other leaves)`` over every per-slot leaf of
-    ``slot_cache`` (all but ``idx``), with the matching leaves of
-    ``others``; returns the results in the same tree."""
-    def walk(axis, leaf, *rest):
+    ``slot_cache`` (all but ``idx``), with the matching leaves of ``axes``
+    and ``others``; returns the results in the same tree."""
+    def walk(leaf, axis, *rest):
         if isinstance(leaf, dict):
-            return {k: walk(axis, v, *(r[k] for r in rest))
+            return {k: walk(v, axis[k], *(r[k] for r in rest))
                     for k, v in leaf.items()}
         if isinstance(leaf, list):
-            return [walk(axis, *vs) for vs in zip(leaf, *rest)]
+            return [walk(*vs) for vs in zip(leaf, axis, *rest)]
         return fn(leaf, axis, *rest)
 
-    return {name: walk(SLOT_AXES[name], leaf, *(o[name] for o in others))
+    return {name: walk(leaf, axes[name], *(o[name] for o in others))
             for name, leaf in slot_cache.items() if name != "idx"}
 
 
 def init_slot_cache(cfg: ModelConfig, max_batch: int, capacity: int, *,
-                    device):
+                    device, params=None, src_embeds=None):
     """Empty slot-layout cache: :func:`repro_torch.models.init_cache` for
-    ``max_batch`` streams (dense: k/v ``[L, max_batch, capacity, Hkv, Dh]``;
-    hybrid: the ``blocks``/``rem`` tree; ssm: the ``state`` tree), with
-    ``idx`` a per-slot
-    ``[max_batch]`` int32 vector."""
-    cache = init_cache(cfg, max_batch, capacity, device=device)
+    ``max_batch`` streams (k/v ``[L, max_batch, capacity, Hkv, Dh]``, and
+    for audio the ``cross`` k/v of ``src_embeds`` [max_batch, src_len, D]
+    through ``params``' encoder; hybrid: the ``blocks``/``rem`` tree; ssm:
+    the ``state`` tree), with ``idx`` a per-slot ``[max_batch]`` int32
+    vector."""
+    cache = init_cache(cfg, max_batch, capacity, device=device,
+                       src_embeds=src_embeds, params=params)
     cache["idx"] = torch.zeros((max_batch,), dtype=torch.int32,
                                device=device)
     return cache
 
 
-def write_slot(slot_cache, request_cache, i: int):
+def write_slot(slot_cache, request_cache, i: int, axes):
     """Insert a batch-1 prefilled cache (scalar ``idx``) into slot ``i`` of
-    the slot-layout cache, in place: every per-slot leaf's slot row is
-    overwritten, so nothing of the slot's previous request survives."""
+    the slot-layout cache, in place: every per-slot leaf's slot row (along
+    its axis in ``axes``, :func:`slot_axes`) is overwritten, so nothing of
+    the slot's previous request survives."""
     _map_slots(lambda big, ax, small: big.select(ax, i).copy_(
-        small.select(ax, 0)), slot_cache, request_cache)
+        small.select(ax, 0)), slot_cache, axes, request_cache)
     slot_cache["idx"][i] = int(request_cache["idx"])
     return slot_cache
 
 
-def gather_slot(slot_cache, i: int):
+def gather_slot(slot_cache, i: int, axes):
     """Slot ``i`` of a slot-layout cache as a batch-1 request cache (a copy,
     with a scalar ``idx``)."""
     return {**_map_slots(lambda big, ax: big.narrow(ax, i, 1).clone(),
-                         slot_cache),
+                         slot_cache, axes),
             "idx": int(slot_cache["idx"][i])}
 
 
@@ -525,26 +542,50 @@ class PrefixIndex:
 class BlockPool:
     """Physical paged KV cache + host-side block allocator.
 
-    Device side: ``.data = {"kv": {"k", "v"}}``, each ``[num_blocks + 1,
-    block_size, L, Hkv, Dh]`` in ``cfg.dtype`` (index ``num_blocks`` is the
-    trash block). Host side: a :class:`BlockAllocator` (free list, refcounts,
+    Device side: one ``[num_blocks + 1, block_size, *rest]`` tensor per
+    per-token cache leaf in ``cfg.dtype`` (index ``num_blocks`` is the trash
+    block), ``rest`` being the leaf's shape without its batch and capacity
+    axes: ``.data = {"kv": {"k", "v"}}``, each ``[num_blocks + 1,
+    block_size, L, Hkv, Dh]``. As in the JAX package, the axes come from
+    :func:`~repro_torch.models.cache_batch_axes` and
+    :func:`~repro_torch.models.cache_capacity_axes`, and a family with a
+    leaf that lacks either (recurrent state, cross-attention caches) is
+    refused. Host side: a :class:`BlockAllocator` (free list, refcounts,
     per-slot ``[max_blocks]`` int32 block tables; unallocated entries point
     at trash). Host-side forks (:meth:`fork_for_write`) must be mirrored on
     ``.data`` with :func:`copy_block`.
     """
 
     def __init__(self, cfg: ModelConfig, *, num_blocks: int, block_size: int,
-                 max_batch: int, capacity: int, device: torch.device):
+                 max_batch: int, capacity: int, device: torch.device,
+                 params=None):
         self.alloc = BlockAllocator(num_blocks=num_blocks,
                                     block_size=block_size,
                                     max_batch=max_batch, capacity=capacity)
         self.num_blocks, self.block_size = num_blocks, block_size
         self.max_blocks = self.alloc.max_blocks
-        shape = (num_blocks + 1, block_size, cfg.n_layers, cfg.n_kv_heads,
-                 cfg.head_dim)
-        self.data = {"kv": {
-            name: torch.zeros(shape, dtype=cfg.dtype, device=device)
-            for name in ("k", "v")}}
+        strip = (lambda t: {k: v for k, v in t.items() if k != "idx"})
+        self.batch_axes = strip(cache_batch_axes(cfg, capacity,
+                                                 params=params))
+        self.cap_axes = strip(cache_capacity_axes(cfg, capacity,
+                                                  params=params))
+        pairs = list(zip(pytree.tree_leaves(self.batch_axes),
+                         pytree.tree_leaves(self.cap_axes)))
+        if not pairs or any(b < 0 or c < 0 for b, c in pairs):
+            raise ValueError(
+                f"family {cfg.family!r} has cache leaves without a "
+                "(batch, capacity) axis pair — paged KV needs every "
+                "per-token tensor to grow with capacity")
+        shapes = strip(init_cache(cfg, 1, capacity, device="meta",
+                                  params=params))
+
+        def phys(leaf, b, c):
+            rest = [s for ax, s in enumerate(leaf.shape) if ax not in (b, c)]
+            return torch.zeros((num_blocks + 1, block_size, *rest),
+                               dtype=leaf.dtype, device=device)
+
+        self.data = pytree.tree_map(phys, shapes, self.batch_axes,
+                                    self.cap_axes)
 
     # -- allocator (delegates to BlockAllocator) ----------------------------
 

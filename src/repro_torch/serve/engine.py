@@ -1,8 +1,11 @@
 """Serving engine: paged KV over the block-native decode path, slot-based
 continuous batching, and the legacy cohort drain.
 
-The counterpart of ``repro.serve.engine.ServeEngine`` for the families the
-port runs, with every argument of its constructor.
+The counterpart of ``repro.serve.engine.ServeEngine``, with every argument
+of its constructor, for every family: each prefill gets the family's
+zero-stub extras as the JAX engine makes them (:meth:`ServeEngine.
+_prefill_inputs`: the vlm family's image embeddings over the first
+``min(n_img_tokens, L)`` positions, the audio family's source frames).
 
 ``mode="paged"``: a :class:`~repro_torch.serve.batch.BlockPool`
 owns the physical ``[num_blocks + 1, block_size, L, Hkv, Dh]`` KV pools;
@@ -36,15 +39,14 @@ exact whole-prompt hit skips prefill, and a shared tail block is forked
 
 With ``speculate=SpecConfig(draft_cfg, draft_params, k)`` each decode
 chunk runs speculative rounds instead (:mod:`repro_torch.serve.spec`): a
-dense draft with its own slot-layout cache, prefilled at every admission,
-proposes ``k`` tokens, the target verifies the ``k + 1``-token window
+draft (a dense, vlm, moe or audio config) with its own slot-layout cache,
+prefilled at every admission, proposes ``k`` tokens, the target verifies
+the ``k + 1``-token window
 through the block table with the CUDA kernel
 :func:`repro_torch.kernels.paged_attention_multi` (its plain version under
-``kv_impl="reference"``), and after each chunk the blocks past every slot's
-accepted length are trimmed back to the pool. The kernel takes a window of
-at most 8 rows, and at most 64 rows over the query heads of one KV head;
-the engine refuses a ``SpecConfig`` past that at construction, where the
-JAX engine accepts it (``ROADMAP.md``, queue 3).
+``kv_impl="reference"``), which takes a window of any size, and after each
+chunk the blocks past every slot's accepted length are trimmed back to the
+pool.
 
 ``mode="continuous"`` (the default, as in the JAX package): a
 :class:`~repro_torch.serve.scheduler.SlotScheduler`
@@ -58,8 +60,10 @@ masking on the device, and one host read per chunk. This is the mode that
 serves the hybrid family (``recurrentgemma-2b``), whose prefill runs the
 CUDA flash-attention and RG-LRU kernels, and the ssm family
 (``rwkv6-1.6b``), whose prefill and decode steps run the CUDA WKV kernel
-(:mod:`repro_torch.kernels.ops`); paged mode refuses both, as the JAX
-package's does.
+(:mod:`repro_torch.kernels.ops`), and the audio family (``whisper-tiny``),
+whose slot cache holds each slot's cross-attention K/V; paged mode refuses
+all three, as the JAX package's does. The MoE family's slot decode routes
+each slot alone, as the reference's vmap over slots does.
 
 ``mode="cohort"``: the legacy fixed-cohort drain, kept as it is in the
 JAX package, as the baseline that its ``benchmarks/serve_bench.py``
@@ -67,12 +71,15 @@ measures the other modes against: ``max_batch`` queued requests at a time,
 their prompts left-padded with token 0 into one batch prefill (the pads
 are attended, with no mask), then one decode step per token for the whole
 cohort; every request's first-token and finish times are the cohort's.
-Its streams are the JAX cohort drain's, not serial decode's.
+Its streams are the JAX cohort drain's, not serial decode's; the MoE family
+routes each cohort's prefill and decode steps jointly, as the reference
+does.
 
 ``prefill_bucket=True`` pads admission prefills (continuous, paged and the
-speculative draft's) to a power-of-two length on dense full-attention
-configs only: right pads are causally masked, so the logits move only by
-the order of sums.
+speculative draft's) to a power-of-two length on full-attention configs of
+the dense, vlm and audio families only: right pads are causally masked, so
+the logits move only by the order of sums (an MoE capacity would grow with
+the pads).
 
 A live ``recorder`` (:class:`repro_torch.obs.Recorder`) gets the JAX
 engine's metrics under its names: counters, spans and instants at the
@@ -93,13 +100,12 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.paged_attention_multi import MAX_ROWS, MAX_WINDOW
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import compute_params, require_ported
 from repro_torch.obs.recorder import NullRecorder
 from repro_torch.serve.batch import (BlockPool, PrefixIndex, copy_block,
-                                     init_slot_cache, write_prefill,
-                                     write_slot)
+                                     init_slot_cache, slot_axes,
+                                     write_prefill, write_slot)
 from repro_torch.serve.scheduler import Request, SlotScheduler
 from repro_torch.serve.spec import KV_IMPLS, SpecConfig, make_spec_decode
 from repro_torch.serve.steps import (make_decode_step, make_fused_decode,
@@ -108,11 +114,17 @@ from repro_torch.serve.steps import (make_decode_step, make_fused_decode,
                                      make_prefill_step)
 
 PAGED_FAMILIES = ("dense", "vlm", "moe")
+# families whose prefill may be right-padded to a bucket: causal attention
+# masks the pads, where recurrent state or an MoE capacity would absorb them
+BUCKET_FAMILIES = ("dense", "vlm", "audio")
+# families a speculative draft may be: all decode-time state position-indexed
+# KV (plus the audio family's static cross-attention cache)
+DRAFT_FAMILIES = ("dense", "vlm", "moe", "audio")
 
 
 def _check_draft(cfg: ModelConfig, dcfg: ModelConfig) -> None:
-    """The JAX engine's checks on a speculative draft, with its messages;
-    then the port's own limit: the draft runs the dense slot decode."""
+    """The JAX engine's checks on a speculative draft, with its
+    messages."""
     if dcfg.vocab != cfg.vocab:
         raise ValueError("draft vocab must match the target's: "
                          f"{dcfg.vocab} != {cfg.vocab}")
@@ -120,8 +132,7 @@ def _check_draft(cfg: ModelConfig, dcfg: ModelConfig) -> None:
     # only when all decode-time state is position-indexed KV — recurrent
     # state folds rejected drafts in, and a window ring cache may already
     # have evicted the rewind target
-    if dcfg.window is not None or dcfg.family not in (
-            "dense", "vlm", "moe", "audio"):
+    if dcfg.window is not None or dcfg.family not in DRAFT_FAMILIES:
         raise ValueError(
             "speculative draft needs a full-attention KV family "
             "(rewind = idx overwrite); got "
@@ -129,19 +140,8 @@ def _check_draft(cfg: ModelConfig, dcfg: ModelConfig) -> None:
     require_ported(dcfg)
 
 
-def _check_verify_window(cfg: ModelConfig, k: int) -> None:
-    """The CUDA verify kernel's limit, checked where the engine is built
-    rather than at the first verify: one thread block owns the window's Q
-    rows of every query head of a KV head. The JAX package's kernel has no
-    such limit (``ROADMAP.md``, queue 3)."""
-    Q, G = k + 1, cfg.n_heads // cfg.n_kv_heads
-    if Q > MAX_WINDOW or Q * G > MAX_ROWS:
-        raise ValueError(
-            f"speculate k={k}: the verify window holds {Q} rows x {G} query "
-            f"heads per KV head = {Q * G} rows, and the port's CUDA kernel "
-            f"paged_attention_multi takes at most {MAX_WINDOW} rows and "
-            f"{MAX_ROWS} rows x heads (ROADMAP.md, queue 3); "
-            "kv_impl='reference' verifies through the plain version")
+def _bucketed(cfg: ModelConfig) -> bool:
+    return cfg.window is None and cfg.family in BUCKET_FAMILIES
 
 
 class ServeEngine:
@@ -170,8 +170,6 @@ class ServeEngine:
         require_ported(cfg)
         if speculate is not None:
             _check_draft(cfg, speculate.draft_cfg)
-            if kv_impl != "reference":
-                _check_verify_window(cfg, speculate.k)
         self.device = resolve_device(device)
         # host-side only: the recorder sees counters, spans and request
         # times at the chunk boundaries the loop already crosses and never
@@ -185,11 +183,11 @@ class ServeEngine:
         self.block_size = block_size
         # pad admission prefills to power-of-two lengths. Right pads are
         # causally masked, so this is exact up to the order of sums (not
-        # bitwise). Recurrent state and ring caches would absorb the pads,
-        # so only dense full-attention configs bucket (a speculative draft
-        # is one: ``_check_draft``).
-        self._bucket = (prefill_bucket and cfg.family == "dense"
-                        and cfg.window is None)
+        # bitwise). Recurrent state, ring caches and MoE capacities would
+        # absorb the pads, so only the dense, vlm and audio families at full
+        # attention bucket; the draft's prefill is re-checked against its
+        # own config (``_admission_batch``)
+        self._bucket = prefill_bucket and _bucketed(cfg)
         self.scheduler = SlotScheduler(max_batch)
         self._prefill = make_prefill_step(cfg, capacity)
         self._decode = make_decode_step(cfg)   # the cohort drain's step
@@ -203,6 +201,7 @@ class ServeEngine:
         self.stats: dict = {}
         self.completed: dict[int, Request] = {}
         if mode == "continuous":
+            self._axes = slot_axes(cfg, capacity, params=self.params)
             self._fused_decode = make_fused_decode(cfg, decode_chunk, eos_id)
         if mode != "paged":
             return
@@ -213,7 +212,8 @@ class ServeEngine:
             num_blocks = max_batch * capacity // block_size
         self.pool = BlockPool(cfg, num_blocks=num_blocks,
                               block_size=block_size, max_batch=max_batch,
-                              capacity=capacity, device=self.device)
+                              capacity=capacity, device=self.device,
+                              params=self.params)
         make_step = (make_paged_decode if self.kv_impl == "reference"
                      else make_paged_kernel_decode)
         self._paged_decode = make_step(cfg, block_size, decode_chunk, eos_id)
@@ -228,6 +228,8 @@ class ServeEngine:
             self._adv = rounds * (speculate.k + 1)
             self._draft_params = compute_params(dcfg, speculate.draft_params,
                                                 self.device)
+            self._draft_axes = slot_axes(dcfg, capacity,
+                                         params=self._draft_params)
             self._draft_prefill = make_prefill_step(dcfg, capacity)
             self._spec_decode = make_spec_decode(
                 cfg, dcfg, block_size, speculate.k, rounds, eos_id,
@@ -304,25 +306,66 @@ class ServeEngine:
 
     # -- shared helpers ------------------------------------------------------
 
-    def _admission_batch(self, req: Request) -> dict:
+    def _zeros(self, cfg: ModelConfig, *shape):
+        return torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+
+    def _prefill_inputs(self, tokens: torch.Tensor,
+                        valid_len: int | None = None,
+                        cfg: ModelConfig | None = None) -> dict:
+        """Family extras (zero-stub modalities) for a [B, S] token batch, as
+        the JAX engine makes them: audio ``src_embeds`` [B, src_len, D]; vlm
+        ``image_embeds`` [B, n, D] at ``image_pos`` 0 .. n - 1, ``n =
+        min(n_img_tokens, valid_len or S)`` (``valid_len``: the true prompt
+        length of a padded batch, so no extra lands on a pad). ``cfg``: the
+        model the batch feeds (the target unless the draft's)."""
+        cfg = cfg or self.cfg
+        B, S = tokens.shape
+        batch = {"tokens": tokens}
+        if cfg.family == "audio":
+            batch["src_embeds"] = self._zeros(cfg, B, cfg.src_len,
+                                              cfg.d_model)
+        if cfg.family == "vlm":
+            n = min(cfg.n_img_tokens, valid_len or S)
+            batch["image_embeds"] = self._zeros(cfg, B, n, cfg.d_model)
+            batch["image_pos"] = torch.arange(
+                n, dtype=torch.int32, device=self.device)[None].repeat(B, 1)
+        return batch
+
+    def _admission_batch(self, req: Request,
+                         cfg: ModelConfig | None = None) -> dict:
         """Prefill inputs for one admitted request: exact length, or
         right-padded to a power-of-two bucket (at least 8, at most
-        ``capacity``) with its true ``length`` when ``prefill_bucket`` is
-        on. Shared by the continuous and paged prefills and the speculative
+        ``capacity``) with its true ``length`` when the target buckets and
+        ``cfg`` (the target unless the draft's) may bucket too. Shared
+        by the continuous and paged prefills and the speculative
         draft's."""
+        cfg = cfg or self.cfg
         L = len(req.prompt)
         toks, length = req.prompt, None
-        if self._bucket:
+        if self._bucket and _bucketed(cfg):
             pad_to = min(max(8, 1 << max(L - 1, 1).bit_length()),
                          self.capacity)
             if L < pad_to:
                 toks = np.zeros(pad_to, np.int32)
                 toks[:L] = req.prompt
                 length = L
-        batch = {"tokens": torch.as_tensor(toks[None], device=self.device)}
+        batch = self._prefill_inputs(
+            torch.as_tensor(toks[None], device=self.device), valid_len=L,
+            cfg=cfg)
         if length is not None:
             batch["length"] = length
         return batch
+
+    def _slot_cache(self, cfg: ModelConfig, params):
+        """An empty slot-layout cache of ``max_batch`` slots for ``cfg``;
+        the audio family's holds the cross-attention K/V of zero source
+        frames (every prefill rewrites its slot's)."""
+        src = None
+        if cfg.family == "audio":
+            src = self._zeros(cfg, self.max_batch, cfg.src_len, cfg.d_model)
+        return init_slot_cache(cfg, self.max_batch, self.capacity,
+                               device=self.device, params=params,
+                               src_embeds=src)
 
     def _emit(self, reqs):
         """Yield the not-yet-streamed suffix of each request's output.
@@ -365,8 +408,7 @@ class ServeEngine:
 
     def _stream_continuous(self):
         sched, B = self.scheduler, self.max_batch
-        cache = init_slot_cache(self.cfg, B, self.capacity,
-                                device=self.device)
+        cache = self._slot_cache(self.cfg, self.params)
         tok = np.zeros((B,), np.int32)
         live = np.zeros((B,), bool)
         remaining = np.zeros((B,), np.int32)
@@ -402,7 +444,7 @@ class ServeEngine:
                 if req.add_token(first, self.eos_id):
                     finish(i)   # prefill token was EOS or budget == 1
                 else:
-                    write_slot(cache, req_cache, i)
+                    write_slot(cache, req_cache, i, self._axes)
                     tok[i], live[i] = first, True
                     remaining[i] = req.remaining
                 yield from self._emit([req])
@@ -454,8 +496,8 @@ class ServeEngine:
             # start); spec_full_rounds: those that accepted all k drafts
             stats.update(spec_proposed=0, spec_accepted=0, draft_prefills=0,
                          spec_rounds=0, spec_full_rounds=0)
-            self._dcache = init_slot_cache(self.spec.draft_cfg, B,
-                                           self.capacity, device=self.device)
+            self._dcache = self._slot_cache(self.spec.draft_cfg,
+                                            self._draft_params)
 
         def finish(i: int) -> Request:
             req = sched.release(i)
@@ -576,8 +618,8 @@ class ServeEngine:
                                         prompt_len=len(req.prompt)):
                     _, d_cache = self._draft_prefill(
                         self._draft_params,
-                        self._admission_batch(req))
-                    write_slot(self._dcache, d_cache, i)
+                        self._admission_batch(req, self.spec.draft_cfg))
+                    write_slot(self._dcache, d_cache, i, self._draft_axes)
                 stats["draft_prefills"] += 1
             yield from self._emit([req])
 
@@ -713,8 +755,8 @@ class ServeEngine:
             sched.n_admitted += len(reqs)   # cohorts bypass the slot table
             stats["peak_concurrency"] = max(stats["peak_concurrency"],
                                             len(reqs))
-            logits, cache = self._prefill(self.params,
-                                          {"tokens": self._pad_batch(reqs)})
+            logits, cache = self._prefill(
+                self.params, self._prefill_inputs(self._pad_batch(reqs)))
             stats["prefills"] += 1
             tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
             now = time.perf_counter()

@@ -11,7 +11,7 @@ produced one at a time.
 
 One round:
 
-1. **Propose** — the draft (its own dense slot-layout cache, same
+1. **Propose** — the draft (its own slot-layout cache, same
    ``capacity``) is rewound to the target's position by overwriting its
    ``idx`` and greedily decodes ``k + 1`` steps from the current token. The
    first ``k`` outputs are the proposals; the last is discarded, but its
@@ -50,9 +50,10 @@ from repro_torch.serve.steps import make_slot_decode_step
 class SpecConfig:
     """Speculative-decoding engine option (``ServeEngine(speculate=...)``).
 
-    draft_cfg/draft_params: a dense config with the target's vocab — e.g.
-    the target's own first layers (:func:`repro_torch.weights.
-    truncate_params`), or the target itself (acceptance 1).
+    draft_cfg/draft_params: a full-attention KV config (dense, vlm, moe or
+    audio) with the target's vocab — e.g. the target's own first layers
+    (:func:`repro_torch.weights.truncate_params`), or the target itself
+    (acceptance 1).
     k: draft tokens proposed per round (the verify window is ``k + 1``).
     rounds: speculative rounds per dispatch; the default covers at least
     ``decode_chunk`` positions (``ceil(decode_chunk / (k + 1))``).

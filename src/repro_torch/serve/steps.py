@@ -1,6 +1,7 @@
 """Serving step functions: prefill, single-token decode, the slot decode
 step and its fused chunk (continuous batching and the speculative draft),
-and the paged decode chunk over either read path.
+the paged decode chunk over either read path, and the abstract decode cache
+(:func:`cache_specs`).
 
 :func:`make_fused_decode`, :func:`make_paged_decode` and
 :func:`make_paged_kernel_decode` are the counterparts of the JAX package's
@@ -20,25 +21,34 @@ pass makes each live slot's write page exclusive first.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
-from repro_torch.kernels import paged_attention
-from repro_torch.models import decode_step, prefill
+from repro_torch.kernels import attention_ref, paged_attention
+from repro_torch.models import decode_step, init_cache, init_params, prefill
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import tree_to
 from repro_torch.models.paged import paged_decode_step
 from repro_torch.serve.batch import (gather_pages, scatter_token,
                                      slice_token, tail_targets)
 
 
 def make_prefill_step(cfg: ModelConfig, capacity: int):
+    """``(params, batch) -> (logits, cache)``: ``batch`` holds ``tokens``
+    and the family extras (``image_embeds``/``image_pos``,
+    ``src_embeds``) and ``length`` where there are any."""
     def step(params, batch):
         return prefill(cfg, params, batch["tokens"], capacity,
+                       image_embeds=batch.get("image_embeds"),
+                       image_pos=batch.get("image_pos"),
+                       src_embeds=batch.get("src_embeds"),
                        length=batch.get("length"))
     return step
 
 
 def make_decode_step(cfg: ModelConfig):
     """``(params, tokens [B, 1], cache) -> (next_tok [B, 1], logits,
-    cache)``: one greedy token for a batch at one position."""
+    cache)``: one greedy token for a batch at one position (the MoE family
+    routes the batch jointly, as the reference's un-vmapped call does)."""
     def step(params, tokens, cache):
         logits, cache = decode_step(cfg, params, tokens, cache)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
@@ -53,9 +63,13 @@ def make_slot_decode_step(cfg: ModelConfig):
     ``cache["idx"][slot]``, the cache written in place (the hybrid family's
     rings at ``idx % capacity``, its recurrent state per slot). The JAX
     package vmaps ``decode_step`` over the slots; here they are one batch,
-    and every per-slot computation reads only its own slot's row."""
+    and every per-slot computation reads only its own slot's row: the MoE
+    family routes each slot as a group of its own (``moe_per_token``), as
+    the vmap gives it, where a batched ``moe_mlp`` would share one capacity
+    among all slots."""
     def step(params, tok, cache):
-        logits, cache = decode_step(cfg, params, tok[:, None], cache)
+        logits, cache = decode_step(cfg, params, tok[:, None], cache,
+                                    moe_per_token=True)
         return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), cache
     return step
 
@@ -182,3 +196,26 @@ def make_paged_kernel_decode(cfg: ModelConfig, block_size: int,
                 torch.stack(tokens), torch.stack(emitted))
 
     return chunk
+
+
+def cache_specs(cfg: ModelConfig, batch: int, capacity: int,
+                src_len: int | None = None):
+    """The decode cache's shapes and dtypes, allocating nothing: the tree of
+    :func:`repro_torch.models.init_cache` with ``meta`` tensors for leaves
+    and ``idx = capacity - 1``. The audio family's cache runs its encoder
+    over ``src_embeds``; its parameters and frames are fake tensors here, as
+    the JAX package's ``eval_shape`` keeps them abstract, and its attention
+    is the plain version, which computes only shapes on them."""
+    with FakeTensorMode():
+        params = src = None
+        if cfg.family == "audio":
+            params = init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+            src = torch.zeros((batch, src_len or cfg.src_len, cfg.d_model),
+                              dtype=cfg.dtype)
+        cache = init_cache(cfg, batch, capacity, device="cpu",
+                           src_embeds=src, params=params,
+                           attend=attention_ref)
+    cache = tree_to({k: v for k, v in cache.items() if k != "idx"},
+                    device="meta")
+    return {**cache, "idx": capacity - 1}

@@ -21,6 +21,7 @@ from torch.utils import _pytree as pytree
 from repro_torch.core.problems import BilevelProblem
 from repro_torch.models import init_params, loss_fn
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import require_trainable
 
 
 def _n_stacked(cfg: ModelConfig) -> int:
@@ -63,6 +64,8 @@ def x_dim(cfg: ModelConfig) -> int:
 
 def make_lm_bilevel_problem(cfg: ModelConfig, *, lip_gy: float = 20.0,
                             mu: float = 1e-2) -> BilevelProblem:
+    require_trainable(cfg)
+
     def lower_loss(x, theta, batch):
         return loss_fn(cfg, theta, batch) + _layer_reg(cfg, x, theta)
 

@@ -34,6 +34,7 @@ from repro.serve.steps import make_decode_step as jax_make_decode  # noqa: E402
 from repro.serve.steps import make_fused_decode as jax_make_fused  # noqa: E402
 from repro_torch.serve.batch import (gather_slot, init_slot_cache,  # noqa: E402
                                      write_slot)
+from repro_torch.serve.batch import slot_axes as port_slot_axes  # noqa: E402
 from repro_torch.serve.steps import (make_decode_step,  # noqa: E402
                                      make_fused_decode)
 from repro_torch.weights import params_from_jax  # noqa: E402
@@ -179,19 +180,23 @@ def test_write_then_gather_slot_matches_jax(model):
     _, treq = repro_torch.models.prefill(
         tcfg, tparams, torch.as_tensor(toks, dtype=torch.int32), 48)
     axes = slot_axes(jcfg, 48, params=jparams)
+    taxes = port_slot_axes(tcfg, 48, params=tparams)
+    assert {k: int(v) for k, v in tflat(taxes).items()} == \
+        {k: int(v) for k, v in jflat(axes).items()}
     jslots = jax_write_slot(jax_init_slot_cache(jcfg, 3, 48), jreq, 1, axes)
-    tslots = write_slot(init_slot_cache(tcfg, 3, 48, device="cpu"), treq, 1)
+    tslots = write_slot(init_slot_cache(tcfg, 3, 48, device="cpu"), treq, 1,
+                        taxes)
     jf, tf = jflat(jslots), tflat(tslots)
     assert {k: v.shape for k, v in tf.items()} == \
         {k: v.shape for k, v in jf.items()}
     for k in jf:
         assert float(np.max(np.abs(tf[k] - jf[k]))) < TOL, k
-    back = gather_slot(tslots, 1)
+    back = gather_slot(tslots, 1, taxes)
     assert back["idx"] == 70
     jback = jflat(jax_gather_slot(jslots, 1, axes))
     for k, v in tflat(back).items():
         assert float(np.max(np.abs(v - jback[k]))) < TOL, k
-    assert gather_slot(tslots, 0)["idx"] == 0
+    assert gather_slot(tslots, 0, taxes)["idx"] == 0
 
 
 def test_fused_decode_chunk_matches_jax(model):
@@ -200,6 +205,7 @@ def test_fused_decode_chunk_matches_jax(model):
     jcfg, tcfg, jparams, tparams = model
     rng = np.random.default_rng(3)
     axes = slot_axes(jcfg, 48, params=jparams)
+    taxes = port_slot_axes(tcfg, 48, params=tparams)
     jslots = jax_init_slot_cache(jcfg, 3, 48)
     tslots = init_slot_cache(tcfg, 3, 48, device="cpu")
     for i, n in ((0, 70), (2, 9)):
@@ -209,7 +215,7 @@ def test_fused_decode_chunk_matches_jax(model):
         _, treq = repro_torch.models.prefill(
             tcfg, tparams, torch.as_tensor(toks, dtype=torch.int32), 48)
         jslots = jax_write_slot(jslots, jreq, i, axes)
-        write_slot(tslots, treq, i)
+        write_slot(tslots, treq, i, taxes)
     tok = np.array([5, 0, 9], np.int32)
     live = np.array([True, False, True])
     remaining = np.array([2, 0, 6], np.int32)

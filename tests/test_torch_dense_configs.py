@@ -64,6 +64,12 @@ def test_arch_specs_and_model_for_shape_match_jax():
         assert_configs_equal(jspec.config, tspec.config)
         assert_configs_equal(jspec.reduced(), tspec.reduced())
         for shape in repro_torch.configs.SHAPES:
+            if jspec.long_ctx == "skip" and shape == "long_500k":
+                # whisper-tiny skips it, in both packages alike
+                for spec in (jspec, tspec):
+                    with pytest.raises(ValueError, match="skips long_500k"):
+                        spec.model_for_shape(shape)
+                continue
             assert_configs_equal(jspec.model_for_shape(shape),
                                  tspec.model_for_shape(shape))
     swa = repro_torch.configs.get("qwen2.5-3b").model_for_shape("long_500k")

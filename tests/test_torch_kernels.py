@@ -259,7 +259,8 @@ def test_multi_ref_bf16_matches_jax_ref():
 
 def test_multi_wrapper_cpu_dispatch_and_bad_arguments():
     """CPU tensors go to the plain version (bitwise, no launch counted);
-    the wrapper rejects what the kernel does not take."""
+    the wrapper takes a window of any size and rejects what the kernel does
+    not take."""
     case = multi_case(7, lengths=[5, 0, 12], Q=4, H=6, Hkv=2, Dh=16, L=2,
                       bs=4)
     before = paged_attention_multi.launches
@@ -271,12 +272,13 @@ def test_multi_wrapper_cpu_dispatch_and_bad_arguments():
         paged_attention_multi(q[:, 0], kp, vp, tables, lengths, 0)
     with pytest.raises(ValueError, match="window"):
         paged_attention_multi(q[:, :0], kp, vp, tables, lengths, 0)
-    with pytest.raises(ValueError, match="window"):
-        paged_attention_multi(q.repeat(1, 3, 1, 1), kp, vp, tables, lengths,
-                              0)                                # Q = 12
-    wide = torch.zeros((3, 8, 18, 16))                          # 8 * 9 rows
-    with pytest.raises(ValueError, match="rows"):
-        paged_attention_multi(wide, kp, vp, tables, lengths, 0)
+    # any window: Q = 12, and 8 x 9 = 72 rows per KV head, which the kernel
+    # cuts into tiles of 64
+    wide = torch.ones((3, 8, 18, 16))
+    for big in (q.repeat(1, 3, 1, 1), wide):
+        assert torch.equal(
+            paged_attention_multi(big, kp, vp, tables, lengths, 0),
+            paged_attention_multi_ref(big, kp, vp, tables, lengths, 0))
     with pytest.raises(TypeError):
         paged_attention_multi(q, kp, vp, tables, lengths.long(), 0)
     with pytest.raises(ValueError, match="layer"):

@@ -399,35 +399,34 @@ def test_spec_rounds_streams_match_jax(rounds, kv_impl, damped):
     assert 0 < st["spec_accepted"] < st["spec_proposed"]
 
 
-def test_spec_window_past_the_kernel_is_refused_at_construction(smollm):
-    """The CUDA verify kernel takes at most 8 rows and 64 rows x heads; a
-    SpecConfig past that is refused where the engine is built, unless the
-    verify runs the plain version. The JAX engine takes it."""
-    cfg = smollm[1].with_overrides(n_heads=16, n_kv_heads=2, head_dim=32)
-    jcfg = smollm[0].with_overrides(n_heads=16, n_kv_heads=2, head_dim=32)
-    tp = repro_torch.models.init_params(cfg, torch.Generator().manual_seed(0),
-                                        device="cpu")
-    draft = repro_torch.serve.SpecConfig(cfg, tp, k=7)   # 8 rows x G 8 = 64
-    repro_torch.serve.ServeEngine(cfg, tp, mode="paged", speculate=draft,
-                                  device="cpu")
-    jp = repro.models.init_params(jcfg, jax.random.PRNGKey(0))
-    for k in (8, 9):
-        repro.serve.ServeEngine(jcfg, jp, mode="paged",
-                                speculate=repro.serve.SpecConfig(jcfg, jp,
-                                                                 k=k))
-        spec = repro_torch.serve.SpecConfig(cfg, tp, k=k)
-        with pytest.raises(ValueError, match="queue 3"):
-            repro_torch.serve.ServeEngine(cfg, tp, mode="paged",
-                                          speculate=spec, device="cpu")
-        repro_torch.serve.ServeEngine(cfg, tp, mode="paged", speculate=spec,
-                                      kv_impl="reference", device="cpu")
-    wide = cfg.with_overrides(n_heads=32, n_kv_heads=2)   # G 16: 4 rows max
-    wp = repro_torch.models.init_params(wide, torch.Generator().manual_seed(0),
-                                        device="cpu")
-    with pytest.raises(ValueError, match="80 rows"):
-        repro_torch.serve.ServeEngine(
-            wide, wp, mode="paged", device="cpu",
-            speculate=repro_torch.serve.SpecConfig(wide, wp, k=4))
+def test_spec_window_of_any_size_serves_as_the_reference(qwen):
+    """A qwen-shaped target (G 8 query heads per KV head) speculating k = 8
+    verifies a window of Q 9, Q * G 72 rows: the verify kernel takes any
+    window, so the engine accepts every SpecConfig the JAX engine does, and
+    its streams on the kernel's path equal those of ``kv_impl="reference"``
+    and of the JAX engine."""
+    jcfg, tcfg, jp, tp = build("qwen2.5-3b", n_heads=16, n_kv_heads=2)
+    assert tcfg.n_heads // tcfg.n_kv_heads == 8
+    k = 8
+    reqs = workload(tcfg.vocab)[:3]
+    kw = dict(mode="paged", capacity=48, max_batch=2, decode_chunk=4,
+              block_size=4)
+    jd = {"embed": jp["embed"], "final_norm": jp["final_norm"],
+          "layers": jax.tree.map(lambda t: t[:1], jp["layers"])}
+    jeng = repro.serve.ServeEngine(
+        jcfg, jp, speculate=repro.serve.SpecConfig(
+            jcfg.with_overrides(n_layers=1), jd, k=k), **kw)
+    _, jout = drain(jeng, reqs)
+    streams = {}
+    for kv_impl in ("kernel", "reference"):
+        teng = repro_torch.serve.ServeEngine(
+            tcfg, tp, device="cpu", kv_impl=kv_impl,
+            speculate=repro_torch.serve.SpecConfig(
+                tcfg.with_overrides(n_layers=1), truncate_params(tp, 1),
+                k=k), **kw)
+        _, streams[kv_impl] = drain(teng, reqs)
+        assert teng.stats["spec_proposed"] > 0
+    assert streams["kernel"] == streams["reference"] == jout
 
 
 # ---------------------------------------------------------------------------

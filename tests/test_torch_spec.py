@@ -37,8 +37,8 @@ from repro_torch.kernels import paged_attention_multi  # noqa: E402
 from repro_torch.models import decode_step, prefill  # noqa: E402
 from repro_torch.models.paged import paged_verify_step  # noqa: E402
 from repro_torch.serve.batch import (init_slot_cache, scatter_tokens,  # noqa: E402
-                                     tail_targets, tail_targets_multi,
-                                     write_slot)
+                                     slot_axes, tail_targets,
+                                     tail_targets_multi, write_slot)
 from repro_torch.serve.spec import SpecConfig, make_spec_decode  # noqa: E402
 from repro_torch.serve.steps import make_slot_decode_step  # noqa: E402
 from repro_torch.weights import params_from_jax, truncate_params  # noqa: E402
@@ -170,9 +170,10 @@ def test_scatter_tokens_matches_jax(seed):
 def prefilled(tcfg, tparams, prompts, capacity):
     """A slot-layout cache holding each prompt's prefill in its own slot."""
     cache = init_slot_cache(tcfg, len(prompts), capacity, device="cpu")
+    axes = slot_axes(tcfg, capacity)
     for i, p in enumerate(prompts):
         _, req = prefill(tcfg, tparams, torch.from_numpy(p[None]), capacity)
-        write_slot(cache, req, i)
+        write_slot(cache, req, i, axes)
     return cache
 
 

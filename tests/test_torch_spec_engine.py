@@ -271,8 +271,8 @@ def test_spec_trace_keeps_allocator_invariants(model, seed):
 
 def test_speculate_checks_match_jax(model):
     """The draft checks raise what the JAX engine raises, with its
-    messages; a draft the JAX package takes but the port does not run yet
-    raises NotImplementedError naming its ROADMAP item."""
+    messages; a draft of every family the JAX package takes (an moe draft
+    here) is taken by the port too."""
     jcfg, tcfg, jparams, tparams, jdc, tdc, jdraft, tdraft = model
     bad = [
         (dict(mode="continuous"), {}, "requires mode='paged'"),
@@ -292,11 +292,13 @@ def test_speculate_checks_match_jax(model):
             repro_torch.serve.ServeEngine(tcfg, tparams, speculate=tspec,
                                           device="cpu", **kw)
         assert str(terr.value) == str(jerr.value)
-    moe = repro_torch.serve.SpecConfig(tdc.with_overrides(family="moe"),
-                                       tdraft, k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        repro_torch.serve.ServeEngine(tcfg, tparams, mode="paged",
-                                      speculate=moe, device="cpu")
+    moe = dict(family="moe", n_experts=4, top_k=2)
+    repro.serve.ServeEngine(jcfg, jparams, mode="paged", speculate=(
+        repro.serve.SpecConfig(jdc.with_overrides(**moe), jdraft, k=2)))
+    repro_torch.serve.ServeEngine(
+        tcfg, tparams, mode="paged", device="cpu",
+        speculate=repro_torch.serve.SpecConfig(tdc.with_overrides(**moe),
+                                               tdraft, k=2))
     if not torch.cuda.is_available():   # the default device is the card
         with pytest.raises(RuntimeError, match="CUDA"):
             repro_torch.serve.ServeEngine(

@@ -381,8 +381,10 @@ def test_not_ported_paths_raise():
         with pytest.raises(NotImplementedError, match="item 4"):
             pdata.make_node_batch(tcfg.with_overrides(family=family), gen,
                                   B, S)
+    moe = tcfg.with_overrides(family="moe", n_experts=4, top_k=2)
+    init_params(moe, gen, device="cpu")   # the moe family serves
     with pytest.raises(NotImplementedError, match="queue 1"):
-        init_params(tcfg.with_overrides(family="moe"), gen, device="cpu")
+        ptrain.make_trainer_engine(moe, tc, K, device="cpu")
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
