@@ -105,11 +105,14 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    tokens, J = 2 randomized) for 10 steps, fused: one CUDA graph capture
    and two replays, every eval's losses finite; steps/s, tokens/s, the
    capture's seconds and the peak memory; (b) the same run per_step for 5
-   steps, every state leaf bit for bit equal to the fused run's; (c) each
-   family's reduced config, MDBO and VRDBO, the card against the port's CPU
-   run on the same batches and J̃ within a stated f32 limit, and a reduced
-   CLI run whose checkpoints ``restore`` gives back; (d) the card's busy
-   share over the per_step chunk and one replayed fused chunk;
+   steps, every state leaf bit for bit equal to the fused run's; (c) the
+   reduced config (f32) of each of the seven trained architectures
+   (smollm-360m, recurrentgemma-2b, rwkv6-1.6b, phi3.5-moe, grok-1,
+   chameleon-34b, whisper-tiny), MDBO and VRDBO, fused on the card against
+   per_step on the port's CPU on the same batches and J̃ within a stated f32
+   limit, and a reduced CLI run whose checkpoints ``restore`` gives back;
+   (d) the card's busy share over the per_step chunk and one replayed
+   fused chunk;
 14. compressed and asynchronous gossip (``core/compression.py``,
    ``core/async_gossip.py``, the Engine's stateful-mix carry,
    ``repro_torch.obs``), which run no TPU kernel and so add none, on phase
@@ -184,6 +187,16 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    (phase 6's): the busy share, each kernel traced as often as counted.
    Tokens/s, the peak memory and the weights' size print per config; the
    kernel rows print as one ``[16 rows]`` JSON line.
+17. the LM trainer on full-width ``whisper-tiny`` (the audio family: the
+   encoder over 1 500 frames of the audio stub, cross-attention, vocab
+   51 865; random f32 weights from seed 0), which runs no TPU kernel and
+   so adds none, through ``repro_torch.launch.train.main``: MDBO, K = 4,
+   phase 13's per-node batch of 2 x 32 tokens and its step counts; per_step
+   for 5 steps, then fused for 10 (one capture, two replays); the fused
+   state after 5 steps equal to the per_step one leaf for leaf, bit for
+   bit, and the evals at steps 0 and 5 finite and equal; steps/s of both
+   dispatches, the peak memory and the card's busy share over one replayed
+   chunk.
 
 Prints a ``{"kernels": [...]}`` line naming all five kernels, then the
 card's name and power limit, and as its last line ``{"ok": true,
@@ -355,7 +368,9 @@ TR_ARGV = ["--arch", TR_ARCH, "--steps", str(TR_STEPS), "--eval-every",
 # growth; the limit is on the losses and on max |difference| of every state
 # leaf (all O(1) or smaller), as phase 12's
 TR_SMALL_K, TR_SMALL_SEQ, TR_SMALL_STEPS, TOL_TR = 2, 16, 3, 1e-4
-TR_FAMILIES = ("smollm-360m", "recurrentgemma-2b", "rwkv6-1.6b")
+TR_FAMILIES = ("smollm-360m", "recurrentgemma-2b", "rwkv6-1.6b",
+               "phi3.5-moe-42b-a6.6b", "grok-1-314b", "chameleon-34b",
+               "whisper-tiny")
 
 
 # phase 14: compressed and asynchronous gossip on phase 12's workload.
@@ -410,6 +425,14 @@ CH_ARCH, WH_ARCH = "chameleon-34b", "whisper-tiny"
 FAM_DEPTH = {PHI_ARCH: 8, GROK_ARCH: 2, CH_ARCH: 16, WH_ARCH: None}
 FAM_MAX_NEW, FAM_MAX_BATCH, GROK_REQUESTS = 16, 4, 4
 CH_REQUESTS, CH_PROMPT_LENS, CH_CAPACITY, CH_SPEC_K = 4, (1100, 1401), 1440, 8
+
+# phase 17: the LM trainer on full-width whisper-tiny (4 + 4 layers,
+# d_model 384, vocab 51 865, 1 500 source frames; random f32 weights from
+# seed 0) through its CLI, MDBO at phase 13's K, per-node batch and step
+# counts: per_step for one eval interval, then fused (one capture, two
+# replays)
+WT_ARGV = ["--arch", WH_ARCH, "--steps", str(TR_STEPS), "--eval-every",
+           str(TR_EVAL)]
 
 
 def card_line() -> str:
@@ -1951,6 +1974,87 @@ class BusyWindow:
         return busy_ms, wall_ms, len(recs)
 
 
+def check_whisper_trainer(torch, card):
+    """Phase 17: the LM trainer on full-width ``whisper-tiny`` through its
+    CLI, per_step for one eval interval, then fused (one capture, two
+    replays): the states after it equal bit for bit, the evals finite and
+    equal; steps/s of both, the peak memory, the busy share over one
+    replayed chunk."""
+    from repro_torch.configs import get
+    from repro_torch.core.hypergrad import tree_map
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import TrainerConfig
+    from torch.utils import _pytree as pytree
+
+    dev = torch.device("cuda")
+    cfg = get(WH_ARCH).config
+    to_cpu = partial(tree_map, lambda a: a.cpu())
+    gb = 1e-9
+    summary = {"card": card, "arch": WH_ARCH, "K": TR_K,
+               "tokens_per_node_step": TR_BATCH * TR_SEQ,
+               "src_frames": cfg.src_len}
+    kept = {}
+
+    def keeper(key):
+        def on_eval(t, state):
+            if t == 0:
+                summary["params_per_node"] = sum(
+                    a.numel() for a in pytree.tree_leaves(state.y)) // TR_K
+            elif t == TR_EVAL:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                kept[key] = to_cpu(state)
+                kept[f"{key}_s"] = time.perf_counter() - t0
+            elif t == TR_STEPS:
+                kept["live"] = state
+        return on_eval
+
+    torch.cuda.reset_peak_memory_stats()
+    pres, peng = train_cli.main(
+        ["--arch", WH_ARCH, "--steps", str(TR_EVAL), "--eval-every",
+         str(TR_EVAL), "--dispatch", "per_step"], on_eval=keeper("per_step"))
+    torch.cuda.synchronize()
+    summary["per_step"] = {
+        "steps_per_s": round(TR_EVAL / (pres.wall_time_s
+                                        - kept["per_step_s"]), 3),
+        "peak_gb": round(torch.cuda.max_memory_allocated() * gb, 2)}
+    del peng
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, eng = train_cli.main(WT_ARGV, on_eval=keeper("fused"))
+    torch.cuda.synchronize()
+    curves = res.upper_loss + res.lower_loss
+    if not (all(np.isfinite(curves)) and res.steps == [0, TR_EVAL, TR_STEPS]
+            and (eng.captures, eng.replays) == (1, 2)):
+        raise AssertionError(f"[17] {res.steps}, losses {curves}, "
+                             f"{eng.captures} captures, {eng.replays} replays")
+    if not (leaves_equal(torch, kept["fused"], kept["per_step"])
+            and same_curves(pres, res, upto=2)):
+        raise AssertionError("[17] fused differs from per_step at full "
+                             "width")
+    wall = res.wall_time_s - kept["fused_s"]
+    summary["fused_cli"] = {
+        "steps_per_s": round(TR_STEPS / wall, 3),
+        "wall_s": round(wall, 2), "capture_s": round(eng.capture_s, 2),
+        "peak_gb": round(torch.cuda.max_memory_allocated() * gb, 2),
+        "val_loss": [round(v, 4) for v in res.upper_loss]}
+    print(f"[17] fused == per_step bit for bit after {TR_EVAL} steps "
+          f"(every state leaf) and at the evals of steps 0 and {TR_EVAL}",
+          flush=True)
+    tc = TrainerConfig(mix="ring")     # the CLI's algorithm and J
+    draws = trainer_draws(torch, cfg, tc, dev, TR_EVAL)
+    busy, wall_ms, n = busy_share(torch, lambda: eng.run_chunk(
+        kept["live"], draws))
+    summary["fused_replay"] = {
+        "steps_per_s": round(TR_EVAL / (wall_ms / 1e3), 3),
+        "busy_share": round(busy / wall_ms, 4), "busy_ms": round(busy, 1),
+        "wall_ms": round(wall_ms, 1), "device_records_per_step": n // TR_EVAL}
+    print("[17] " + json.dumps(summary), flush=True)
+    del eng, kept
+    torch.cuda.empty_cache()
+    return summary
+
+
 def busy_share(torch, fn):
     """:class:`BusyWindow` over one call of ``fn``: (busy ms, wall ms,
     device records)."""
@@ -2124,53 +2228,88 @@ def leaves_equal(torch, a, b) -> bool:
                                       for u, v in zip(la, lb))
 
 
+def small_batches(torch, arch):
+    """Phase 13 (c)'s inputs for ``arch``'s reduced config, drawn on the
+    CPU from the seed: (cfg, the step batches, the eval batch, J̃)."""
+    from repro_torch.configs import get
+    from repro_torch.data import make_lm_step_batch, make_node_batch
+
+    cfg = get(arch).reduced()
+    gen = torch.Generator().manual_seed(SEED)
+    batches = [make_lm_step_batch(cfg, gen, TR_SMALL_K, TR_BATCH,
+                                  TR_SMALL_SEQ, J=2)
+               for _ in range(TR_SMALL_STEPS + 1)]
+    ev = make_node_batch(cfg, gen, TR_BATCH, TR_SMALL_SEQ)
+    jt = np.random.default_rng(SEED).integers(
+        0, 2, (TR_SMALL_STEPS + 1, TR_SMALL_K))
+    return cfg, batches, ev, jt
+
+
+def small_run(torch, arch, algo, device, dispatch):
+    """Phase 13 (c)'s run of ``arch`` on ``device``: (RunResult, state)."""
+    from repro_torch.train import TrainerConfig, make_trainer_engine
+
+    cfg, batches, ev, jt = small_batches(torch, arch)
+    _, eng = make_trainer_engine(cfg, TrainerConfig(algo=algo, mix="ring"),
+                                 TR_SMALL_K, dispatch=dispatch, device=device)
+    it = iter(batches)
+    return eng.run(lambda g: next(it), ev, steps=TR_SMALL_STEPS, seed=SEED,
+                   eval_every=TR_SMALL_STEPS, return_state=True, jtilde=jt)
+
+
+def small_cpu_run(arch, algo):
+    """The CPU side of phase 13 (c), in a worker process of its own (two
+    intra-op threads): the losses and every state leaf, as numpy."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.set_num_threads(2)
+    res, state = small_run(torch, arch, algo, "cpu", "per_step")
+    return (res.upper_loss + res.lower_loss,
+            [a.numpy() for a in pytree.tree_leaves(state)])
+
+
 def check_trainer_small(torch):
     """Phase 13 (c): each family's reduced config (f32), MDBO and VRDBO,
     fused on the card (one capture each) against per_step on the CPU, on
-    the same batches (drawn on the CPU) and J̃; then a reduced CLI run with
-    ``--ckpt-dir`` whose checkpoints ``restore`` gives back bit for bit."""
+    the same batches (drawn on the CPU) and J̃; the CPU runs go on in three
+    worker processes while the card's run here. Then a reduced CLI run
+    with ``--ckpt-dir`` whose checkpoints ``restore`` gives back bit for
+    bit."""
+    import multiprocessing
     import tempfile
 
     from repro_torch.checkpoint import latest_step, restore
     from repro_torch.configs import get
     from repro_torch.core.common import replicate
     from repro_torch.core.hypergrad import tree_map
-    from repro_torch.data import make_lm_step_batch, make_node_batch
     from repro_torch.launch import train as train_cli
     from repro_torch.models import init_params
-    from repro_torch.train import TrainerConfig, make_trainer_engine, x_dim
+    from repro_torch.train import x_dim
     from torch.utils import _pytree as pytree
 
-    K, steps = TR_SMALL_K, TR_SMALL_STEPS
-    jt = np.random.default_rng(SEED).integers(0, 2, (steps + 1, K))
+    runs = [(arch, algo) for arch in TR_FAMILIES for algo in ("mdbo", "vrdbo")]
     worst = {}
-    for arch in TR_FAMILIES:
-        cfg = get(arch).reduced()
-        gen = torch.Generator().manual_seed(SEED)
-        batches = [make_lm_step_batch(cfg, gen, K, TR_BATCH, TR_SMALL_SEQ,
-                                      J=2) for _ in range(steps + 1)]
-        ev = make_node_batch(cfg, gen, TR_BATCH, TR_SMALL_SEQ)
-        for algo in ("mdbo", "vrdbo"):
-            tc = TrainerConfig(algo=algo, mix="ring")
-            out = {}
-            for device, dispatch in (("cuda", "fused"), ("cpu", "per_step")):
-                _, eng = make_trainer_engine(cfg, tc, K, dispatch=dispatch,
-                                             device=device)
-                it = iter(batches)
-                out[device] = eng.run(lambda g: next(it), ev, steps=steps,
-                                      seed=SEED, eval_every=steps,
-                                      return_state=True, jtilde=jt)
-            (rg, sg), (rc, sc) = out["cuda"], out["cpu"]
+    with concurrent.futures.ProcessPoolExecutor(
+            3, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu = {run: pool.submit(small_cpu_run, *run) for run in runs}
+        card = {run: small_run(torch, *run, "cuda", "fused") for run in runs}
+        for run in runs:
+            rg, sg = card[run]
+            cpu_losses, cpu_state = cpu[run].result()
             loss = max(abs(a - b) for a, b in zip(
-                rg.upper_loss + rg.lower_loss, rc.upper_loss + rc.lower_loss))
-            state = max(float((u.cpu() - v).abs().max()) for u, v in zip(
-                pytree.tree_leaves(sg), pytree.tree_leaves(sc)))
+                rg.upper_loss + rg.lower_loss, cpu_losses))
+            state = max(float(np.abs(u.cpu().numpy() - v).max())
+                        for u, v in zip(pytree.tree_leaves(sg), cpu_state))
             finite = all(np.isfinite(rg.upper_loss + rg.lower_loss))
-            worst[f"{arch}/{algo}"] = (loss, state)
+            worst["/".join(run)] = (loss, state)
             if not (finite and loss <= TOL_TR and state <= TOL_TR):
-                raise AssertionError(f"[13c] {arch}/{algo}: the card departs "
-                                     f"from the CPU: losses {loss:.3g}, "
-                                     f"state {state:.3g} (limit {TOL_TR})")
+                raise AssertionError(
+                    f"[13c] {'/'.join(run)}: the card departs from the "
+                    f"CPU: losses {loss:.3g}, state {state:.3g} (limit "
+                    f"{TOL_TR})")
+    K, steps = TR_SMALL_K, TR_SMALL_STEPS
     print("[13c] card vs CPU, reduced, " + f"{steps} steps, K {K}, "
           f"{TR_BATCH} x {TR_SMALL_SEQ} tokens a node (limit "
           f"{TOL_TR}), max |loss diff|, max |state leaf diff|: " + json.dumps(
@@ -3791,6 +3930,8 @@ def main() -> int:
         seed=SEED + 17)
     check_families(torch, card, device, flash_rows)
     lap("[16]")
+    check_whisper_trainer(torch, card)
+    lap("[17]")
     print(f"[ ] total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -10,9 +10,9 @@ datasets, splits, shards and :class:`NodeSampler`'s batch stream come from
 ``np.random.default_rng`` exactly as the JAX package's do, so they are equal
 bit for bit; :class:`NodeSampler` returns CPU tensors and the engine moves
 them to its device. :func:`make_device_sampler` draws on the device from a
-``torch.Generator`` instead of ``jax.random``, and so does :func:`lm_batch`,
-the LM token stream. The modality stubs (``audio_stub``, ``vision_stub``)
-wait on the vlm and audio families (``ROADMAP.md``, queue 1, item 4).
+``torch.Generator`` instead of ``jax.random``, and so do :func:`lm_batch`,
+the LM token stream, and the modality stubs :func:`audio_stub` and
+:func:`vision_stub`: the JAX package's laws, other streams.
 """
 from __future__ import annotations
 
@@ -187,3 +187,25 @@ def lm_batch(generator: torch.Generator, vocab: int, batch: int, seq: int, *,
     shift = torch.randint(0, 7, (batch, 1), generator=generator, device=dev)
     toks = (ranks.long() + shift) % vocab
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def audio_stub(generator: torch.Generator, batch: int, frames: int,
+               d_model: int, dtype=torch.float32):
+    """Precomputed conv-frontend frame embeddings (the whisper stub):
+    ``0.02 N(0, 1)`` ``[batch, frames, d_model]`` in ``dtype``, drawn on the
+    generator's device."""
+    return 0.02 * torch.randn((batch, frames, d_model), generator=generator,
+                              device=generator.device, dtype=dtype)
+
+
+def vision_stub(generator: torch.Generator, batch: int, n_tokens: int,
+                d_model: int, seq: int, dtype=torch.float32):
+    """Precomputed patch-token embeddings and their positions (the
+    chameleon stub): ``0.02 N(0, 1)`` ``[batch, n_tokens, d_model]`` in
+    ``dtype``, drawn on the generator's device, and positions
+    ``arange(n_tokens)`` in every row (int32 ``[batch, n_tokens]``; ``seq``
+    is unused, as in the JAX package)."""
+    emb = 0.02 * torch.randn((batch, n_tokens, d_model), generator=generator,
+                             device=generator.device, dtype=dtype)
+    pos = torch.arange(n_tokens, dtype=torch.int32, device=generator.device)
+    return emb, pos[None].repeat(batch, 1)

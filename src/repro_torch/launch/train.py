@@ -13,6 +13,15 @@ package's format. Weights are random, drawn from ``--seed``.
       --device cpu --steps 4 --eval-every 2
   python -m repro_torch.launch.train --arch rwkv6-1.6b --reduced \\
       --device cpu --algo vrdbo
+  python -m repro_torch.launch.train --arch whisper-tiny --steps 10
+  python -m repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b --reduced
+
+Every registered architecture trains; the vlm and audio families' batches
+carry the modality stubs (``data.lm_batch_extras``). phi3.5-moe-42b-a6.6b,
+grok-1-314b and chameleon-34b are ``train_mode="fsdp_gt"`` in the JAX
+package, sharded over a mesh (not ported, ``ROADMAP.md`` queue 1, item 8):
+K copies of their full width do not fit one card, so on one card they
+train with ``--reduced``; without it they run out of card memory.
 
 ``--metrics DIR`` writes ``metrics.jsonl`` and ``metrics.prom`` into DIR
 and ``--trace-dir DIR`` a Perfetto-loadable ``trace.json``, as the JAX CLI

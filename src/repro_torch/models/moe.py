@@ -18,6 +18,11 @@ Two groupings, as the reference's two kinds of call give them:
   slot's routing never sees its neighbours' — the reference vmaps
   ``moe_mlp`` over slots (and verify-window rows), each a batch of one
   token. The slot decode, the paged decode and the verify window route so.
+
+Every step runs under ``torch.func.vmap``, ``grad`` and ``jvp``, as the
+bilevel trainer's per-node gradients and Hessian-vector products need: the
+one-hots are comparisons with ``arange(E)`` and the dispatch writes out of
+place.
 """
 from __future__ import annotations
 
@@ -41,6 +46,13 @@ def init_moe(cfg, gen: torch.Generator):
     }
 
 
+def _one_hot(idx, E: int):
+    """``idx`` [...] -> bool [..., E]: a comparison with ``arange(E)``, the
+    values of ``F.one_hot``, which checks its range with a host read that
+    ``torch.func.vmap`` cannot take."""
+    return idx[..., None] == torch.arange(E, device=idx.device)
+
+
 def route(cfg, p, flat):
     """Routing of ``flat`` [G, n, D] (G groups of n tokens): a dict of
     ``logits``/``probs`` [G, n, E] (f32), ``top_w``/``top_e`` [G, n, K]
@@ -61,7 +73,7 @@ def route(cfg, p, flat):
     # per-group capacity
     C = max(int(cfg.capacity_factor * n * K / E + 0.999), 4)
     assign = top_e.reshape(G, n * K)
-    onehot = F.one_hot(assign, E).to(torch.int32)
+    onehot = _one_hot(assign, E).to(torch.int32)
     pos = torch.sum((torch.cumsum(onehot, dim=1) - 1) * onehot, dim=-1)
     keep = pos < C
     dest = torch.where(keep, assign * C + pos, E * C)
@@ -108,11 +120,12 @@ def moe_mlp(cfg, p, x, *, per_token: bool = False):
     C, dest = r["C"], r["dest"]
 
     # dispatch: each kept assignment to its own row; dropped ones all land
-    # on the overflow row E*C, which is discarded
+    # on the overflow row E*C, which is discarded. Out of place, so that
+    # vmap can write a node's batched rows into the unbatched zeros.
     rep = torch.repeat_interleave(flat, K, dim=1)               # [G, n*K, D]
     buf = torch.zeros((G, E * C + 1, D), dtype=x.dtype, device=x.device)
     groups = torch.arange(G, device=x.device)[:, None]
-    buf[groups, dest] = rep
+    buf = buf.index_put((groups, dest), rep)
     expert_in = buf[:, :E * C].reshape(G, E, C, D).transpose(0, 1)
 
     # the SwiGLU expert FFN, batched over the expert axis
@@ -124,7 +137,7 @@ def moe_mlp(cfg, p, x, *, per_token: bool = False):
     out = combine(r, expert_out)
 
     # aux losses: Switch-style load balance and the router z-loss
-    frac_tokens = torch.mean(F.one_hot(r["top_e"][..., 0], E).float(),
+    frac_tokens = torch.mean(_one_hot(r["top_e"][..., 0], E).float(),
                              dim=(0, 1))
     frac_probs = torch.mean(r["probs"], dim=(0, 1))
     aux_lb = E * torch.sum(frac_tokens * frac_probs)

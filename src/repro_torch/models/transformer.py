@@ -11,9 +11,11 @@ audio (Whisper's encoder-decoder).
   trailing layers for hybrid; ``enc_layers``, ``enc_norm`` and the decoder
   ``layers`` (self-attention, ``cross``-attention, three norms) for
   audio;
-* ``forward(cfg, params, tokens)`` and ``loss_fn(cfg, params, batch)`` —
-  the full-sequence training path: logits (or the final hidden states) and
-  the next-token cross-entropy, taken chunk by chunk (:func:`chunked_ce`);
+* ``forward(cfg, params, tokens, *, image_embeds=, image_pos=,
+  src_embeds=)`` and ``loss_fn(cfg, params, batch)`` — the full-sequence
+  training path: logits (or the final hidden states) with the MoE aux
+  losses, and the next-token cross-entropy taken chunk by chunk
+  (:func:`chunked_ce`) plus those aux losses;
 * ``prefill(cfg, params, tokens, capacity)`` — full-prompt forward that also
   materializes the decode cache;
 * ``init_cache(cfg, batch, capacity, device=)`` — an empty cache (audio:
@@ -37,15 +39,16 @@ batch, as the reference's calls do; ``decode_step(moe_per_token=True)``
 gives each slot its own routing group, as the reference's vmap over slots
 gives it (:mod:`repro_torch.models.moe`).
 
-The training path (the dense, hybrid and ssm families; the others raise
-:func:`require_trainable`'s ``NotImplementedError``) launches none of
-those kernels, by the JAX package's own
-design and not as a fallback: its ``forward`` attends through the einsum
-``sdpa``, runs the RG-LRU as a ``lax.scan`` and WKV as ``_wkv_scan``, and
-reaches no ``pallas_call``; and neither package has a derivative for the
-kernels, which are forward-only. So :func:`forward` attends through
-:func:`~repro_torch.models.attention.self_attention` and passes the model
-modules' own recurrences (:func:`repro_torch.models.rglru.scan_steps`,
+The training path (every family) launches none of those kernels, by the
+JAX package's own design and not as a fallback: its ``forward`` attends
+through the einsum ``sdpa`` (whisper's encoder and cross-attention too),
+runs the RG-LRU as a ``lax.scan``, WKV as ``_wkv_scan`` and the MoE experts
+as ``einsum``s, and reaches no ``pallas_call``; and neither package has a
+derivative for the kernels, which are forward-only. So :func:`forward`
+attends through :func:`~repro_torch.models.attention.self_attention` and
+:func:`~repro_torch.models.attention.cross_attention` (the encoder through
+:func:`_einsum_attend`) and passes the model modules' own recurrences
+(:func:`repro_torch.models.rglru.scan_steps`,
 :func:`repro_torch.models.rwkv6.wkv_scan`), which ``torch.func.grad``,
 ``jvp`` and ``vmap`` all go through, as the bilevel trainer's
 Hessian-vector products need. It reads the ``param_dtype`` leaves and casts
@@ -68,7 +71,7 @@ from repro_torch.models import moe, rglru, rwkv6
 from repro_torch.models.attention import (cross_attention,
                                          decode_self_attention, init_attn,
                                          init_kv_cache, kv_proj,
-                                         prefill_attention, qkv,
+                                         prefill_attention, qkv, sdpa,
                                          self_attention)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_norm, dense, embed, init_embed,
@@ -81,17 +84,20 @@ F32_LEAVES = ("lam", "w0")
 FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 # the decoder-only families whose cache is one stacked KV tree
 KV_FAMILIES = ("dense", "vlm", "moe")
-TRAIN_FAMILIES = ("dense", "hybrid", "ssm")
+# the families whose attention layers read ``cfg.window`` (audio: its
+# decoder's self-attention); the hybrid family reads ``local_window`` and
+# the ssm family has no attention
+WINDOW_FAMILIES = KV_FAMILIES + ("audio",)
 
 
 def require_ported(cfg: ModelConfig) -> None:
     """Reject what the port cannot run: a family, norm, activation or block
-    kind the JAX package does not have either, or a sliding ``window`` on a
-    family other than dense (the hybrid family's local window is its own;
-    the reference passes ``cfg.window`` to the moe and vlm layers too, and
-    no configuration or test of either package runs that)."""
+    kind the JAX package does not have either, or a sliding ``window`` on
+    the hybrid or ssm family, whose layers never read it (the hybrid
+    family's local window is ``local_window``)."""
     if (cfg.family not in FAMILIES
-            or (cfg.window is not None and cfg.family != "dense")
+            or (cfg.window is not None
+                and cfg.family not in WINDOW_FAMILIES)
             or cfg.norm not in ("rmsnorm", "layernorm")
             or cfg.act not in ("swiglu", "gelu")
             or not set(cfg.block_pattern) <= {"rec", "attn"}):
@@ -99,20 +105,7 @@ def require_ported(cfg: ModelConfig) -> None:
             f"{cfg.name}: family={cfg.family!r} window={cfg.window!r} "
             f"norm={cfg.norm!r} act={cfg.act!r} "
             f"block_pattern={cfg.block_pattern}: the port takes a window on "
-            "the dense family only (ROADMAP.md, queue 1)")
-
-
-def require_trainable(cfg: ModelConfig) -> None:
-    """The training path has the dense, hybrid and ssm families. The moe,
-    vlm and audio families serve but do not train yet: ``loss_fn``'s MoE
-    aux losses and the vlm/audio batch extras are ROADMAP.md's queue 1,
-    item 4 (the training half)."""
-    require_ported(cfg)
-    if cfg.family not in TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family (loss_fn's MoE "
-            "aux losses, the vlm and audio batch extras) is not ported "
-            "(ROADMAP.md, queue 1, item 4: the training half)")
+            f"the {', '.join(WINDOW_FAMILIES)} families only")
 
 
 def layer_params(layers: Params, i: int) -> Params:
@@ -274,9 +267,15 @@ def _embed_rows(cfg, p, tokens):
 
 
 def _attn_layer(cfg, p, x, positions, *, window):
+    """One causal attention layer over the whole sequence: (x, the MoE
+    layer's aux losses, or ``{}`` for an MLP layer). The MoE layer routes
+    jointly (``cfg.moe_groups`` groups), as the JAX model's does."""
     h = x + self_attention(cfg, p["attn"], apply_norm(cfg, p["norm1"], x),
                            positions, causal=True, window=window)
-    return h + mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], h))
+    if "moe" in p:
+        out, aux = moe.moe_mlp(cfg, p["moe"], apply_norm(cfg, p["norm2"], h))
+        return h + out, aux
+    return h + mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], h)), {}
 
 
 def _rec_layer(cfg, p, x):
@@ -287,35 +286,81 @@ def _rec_layer(cfg, p, x):
     return h + mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], h))
 
 
-def forward(cfg: ModelConfig, params: Params, tokens, *,
-            return_hidden: bool = False):
+def _encdec_layer(cfg, p, x, enc, positions):
+    """One Whisper decoder layer over the whole sequence: causal
+    self-attention (within ``cfg.window``), cross-attention over the
+    encoder's output ``enc``, the MLP."""
+    h = x + self_attention(cfg, p["attn"], apply_norm(cfg, p["norm1"], x),
+                           positions, causal=True, window=cfg.window)
+    h = h + cross_attention(cfg, p["cross"], apply_norm(cfg, p["norm2"], h),
+                            kv_x=enc)
+    return h + mlp(cfg, p["mlp"], apply_norm(cfg, p["norm3"], h))
+
+
+def _einsum_attend(q, k, v, *, causal, window):
+    """The einsum :func:`~repro_torch.models.attention.sdpa` in the
+    kernels' ``[B, H, S, Dh]`` layout at positions 0 .. S-1: the attention
+    the training path hands :func:`_encode`."""
+    qpos = torch.arange(q.shape[2], device=q.device)
+    kpos = torch.arange(k.shape[2], device=q.device)
+    out = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+               q_positions=qpos, k_positions=kpos, causal=causal,
+               window=window)
+    return out.transpose(1, 2)
+
+
+def forward(cfg: ModelConfig, params: Params, tokens, *, image_embeds=None,
+            image_pos=None, src_embeds=None, return_hidden: bool = False):
     """tokens [B, S] -> (logits [B, S, V], aux dict); with
     ``return_hidden=True`` the final-norm'd hidden states [B, S, D] instead
-    of the logits (what :func:`chunked_ce` reads). ``aux`` stays empty: it
-    holds the MoE family's losses, whose training path is not ported
-    (:func:`require_trainable`)."""
-    require_trainable(cfg)
+    of the logits (what :func:`chunked_ce` reads). ``aux`` holds the MoE
+    family's ``moe_lb`` and ``moe_z``, each summed over the layers, and is
+    empty for the other families.
+
+    vlm: ``image_embeds`` [B, n, D] replace the token embeddings at
+    ``image_pos`` [B, n] before the first layer. audio: ``src_embeds`` [B,
+    src_len, D] run through the encoder, which every decoder layer
+    cross-attends."""
+    require_ported(cfg)
     x = _embed_rows(cfg, params["embed"], tokens)
+    if cfg.family == "vlm" and image_embeds is not None:
+        x = _merge_image_embeds(x, image_embeds, image_pos)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    aux = {}
     if cfg.family == "ssm":
         for lp in unstack(params["layers"], cfg.n_layers):
             x, _ = _rwkv_layer(cfg, lp, x, wkv=rwkv6.wkv_scan)
     elif cfg.family == "hybrid":
         for kind, lp, _ in hybrid_layers(cfg, params, None):
             x = (_rec_layer(cfg, lp, x) if kind == "rec" else
-                 _attn_layer(cfg, lp, x, positions, window=cfg.local_window))
-    else:
+                 _attn_layer(cfg, lp, x, positions,
+                             window=cfg.local_window)[0])
+    elif cfg.family == "audio":
+        if src_embeds is None:
+            raise ValueError("the audio family's forward needs src_embeds")
+        enc = _encode(cfg, params, src_embeds, attend=_einsum_attend)
         for lp in unstack(params["layers"], cfg.n_layers):
-            x = _attn_layer(cfg, lp, x, positions, window=cfg.window)
+            x = _encdec_layer(cfg, lp, x, enc, positions)
+    else:
+        auxs = []
+        for lp in unstack(params["layers"], cfg.n_layers):
+            x, a = _attn_layer(cfg, lp, x, positions, window=cfg.window)
+            auxs.append(a)
+        aux = {k: torch.sum(torch.stack([a[k] for a in auxs]))
+               for k in auxs[0]}
     x = apply_norm(cfg, params["final_norm"], x)
     if return_hidden:
-        return x, {}
-    return unembed(cfg, params["embed"], x), {}
+        return x, aux
+    return unembed(cfg, params["embed"], x), aux
 
 
 def _hidden_states(cfg: ModelConfig, params: Params, batch):
-    """Final-norm'd hidden states: :func:`forward` without the unembed."""
-    return forward(cfg, params, batch["tokens"], return_hidden=True)
+    """Final-norm'd hidden states and the aux losses: :func:`forward`
+    without the unembed, on the batch's tokens and its modality extras."""
+    return forward(cfg, params, batch["tokens"],
+                   image_embeds=batch.get("image_embeds"),
+                   image_pos=batch.get("image_pos"),
+                   src_embeds=batch.get("src_embeds"), return_hidden=True)
 
 
 def chunked_ce(cfg: ModelConfig, params: Params, x, labels,
@@ -341,9 +386,14 @@ def chunked_ce(cfg: ModelConfig, params: Params, x, labels,
 
 def loss_fn(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
     """Next-token cross-entropy of ``batch`` (``{'tokens', 'labels'}``,
-    each ``[B, S]``), chunked (:func:`chunked_ce`)."""
-    x, _ = _hidden_states(cfg, params, batch)
-    return chunked_ce(cfg, params, x, batch["labels"])
+    each ``[B, S]``, and the vlm or audio extras), chunked
+    (:func:`chunked_ce`), plus ``0.01 moe_lb + 0.001 moe_z`` for the MoE
+    family."""
+    x, aux = _hidden_states(cfg, params, batch)
+    loss = chunked_ce(cfg, params, x, batch["labels"])
+    if "moe_lb" in aux:
+        loss = loss + 0.01 * aux["moe_lb"] + 0.001 * aux["moe_z"]
+    return loss
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,7 @@ from torch.utils import _pytree as pytree
 from repro_torch.core.problems import BilevelProblem
 from repro_torch.models import init_params, loss_fn
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import require_trainable
+from repro_torch.models.transformer import require_ported
 
 
 def _n_stacked(cfg: ModelConfig) -> int:
@@ -38,7 +38,10 @@ def _layer_reg(cfg: ModelConfig, x, params) -> torch.Tensor:
     is the stack (``n_layers``, or the hybrid family's block count) is
     weighted layer by layer by ``exp(x[:n])``; every other leaf — the
     embedding, the final norm, the hybrid family's ``rem`` layers — by
-    ``exp(x[-1])``. Squares are taken in the leaf's dtype and summed in f32.
+    ``exp(x[-1])``. The audio family's ``enc_layers`` name ``layers`` too,
+    as in the JAX package: with ``n_enc_layers == n_layers`` encoder layer
+    ``i`` shares ``x[i]`` with decoder layer ``i``, else they go to
+    ``x[-1]``. Squares are taken in the leaf's dtype and summed in f32.
     Under ``vmap`` the shapes read here are the per-node ones."""
     n = _n_stacked(cfg)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -64,7 +67,7 @@ def x_dim(cfg: ModelConfig) -> int:
 
 def make_lm_bilevel_problem(cfg: ModelConfig, *, lip_gy: float = 20.0,
                             mu: float = 1e-2) -> BilevelProblem:
-    require_trainable(cfg)
+    require_ported(cfg)
 
     def lower_loss(x, theta, batch):
         return loss_fn(cfg, theta, batch) + _layer_reg(cfg, x, theta)

@@ -38,6 +38,8 @@ from repro_torch.serve.batch import slot_axes as port_slot_axes  # noqa: E402
 from repro_torch.serve.steps import (make_decode_step,  # noqa: E402
                                      make_fused_decode)
 from repro_torch.weights import params_from_jax  # noqa: E402
+import torch_jax_model as jax_model  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 # f32 cache leaves through 2-3 layers: matmul summation order (XLA's dot vs
 # oneDNN), ~1e-7 relative on O(1) values; 1e-4 leaves two decades.
@@ -175,7 +177,7 @@ def test_write_then_gather_slot_matches_jax(model):
     evaluation."""
     jcfg, tcfg, jparams, tparams = model
     toks = np.random.default_rng(2).integers(0, 512, size=(1, 70))
-    _, jreq = repro.models.prefill(jcfg, jparams,
+    _, jreq = jax_model.prefill(jcfg, jparams,
                                    jnp.asarray(toks, jnp.int32), 48)
     _, treq = repro_torch.models.prefill(
         tcfg, tparams, torch.as_tensor(toks, dtype=torch.int32), 48)
@@ -210,7 +212,7 @@ def test_fused_decode_chunk_matches_jax(model):
     tslots = init_slot_cache(tcfg, 3, 48, device="cpu")
     for i, n in ((0, 70), (2, 9)):
         toks = rng.integers(0, 512, size=(1, n))
-        _, jreq = repro.models.prefill(jcfg, jparams,
+        _, jreq = jax_model.prefill(jcfg, jparams,
                                        jnp.asarray(toks, jnp.int32), 48)
         _, treq = repro_torch.models.prefill(
             tcfg, tparams, torch.as_tensor(toks, dtype=torch.int32), 48)
@@ -237,7 +239,7 @@ def test_decode_step_matches_jax(model):
     position, from a prefilled cache."""
     jcfg, tcfg, jparams, tparams = model
     toks = np.random.default_rng(4).integers(0, 512, size=(2, 70))
-    _, jc = repro.models.prefill(jcfg, jparams, jnp.asarray(toks, jnp.int32),
+    _, jc = jax_model.prefill(jcfg, jparams, jnp.asarray(toks, jnp.int32),
                                  48)
     _, tc = repro_torch.models.prefill(
         tcfg, tparams, torch.as_tensor(toks, dtype=torch.int32), 48)

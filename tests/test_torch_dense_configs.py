@@ -23,6 +23,7 @@ import repro.models  # noqa: E402
 import repro_torch.configs  # noqa: E402
 import repro_torch.models  # noqa: E402
 from repro_torch.weights import params_from_jax  # noqa: E402
+import torch_jax_model as jax_model  # noqa: E402
 from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 # f32 through 2 layers of d_model 256: the frameworks sum each matmul's
@@ -141,7 +142,7 @@ def run_both(jcfg, tcfg, jparams, tparams, toks, capacity, steps=3):
     on the JAX package's tokens; the logits and every cache leaf must agree
     after the prefill and after each step (the port's decode writes its
     cache in place). Returns the port's prefill cache, cloned."""
-    jl, jc = repro.models.prefill(jcfg, jparams, jnp.asarray(toks), capacity)
+    jl, jc = jax_model.prefill(jcfg, jparams, jnp.asarray(toks), capacity)
     tl, tc = repro_torch.models.prefill(tcfg, tparams,
                                         torch.from_numpy(toks), capacity)
     assert np.abs(np32(tl) - np32(jl)).max() < TOL
@@ -150,7 +151,7 @@ def run_both(jcfg, tcfg, jparams, tparams, toks, capacity, steps=3):
              "idx": tc["idx"]}
     for _ in range(steps):
         tok = np.array(jnp.argmax(jl[:, -1], axis=-1), np.int32)[:, None]
-        jl, jc = repro.models.decode_step(jcfg, jparams, jnp.asarray(tok), jc)
+        jl, jc = jax_model.decode_step(jcfg, jparams, jnp.asarray(tok), jc)
         tl, tc = repro_torch.models.decode_step(tcfg, tparams,
                                                 torch.from_numpy(tok), tc)
         assert np.abs(np32(tl) - np32(jl)).max() < TOL

@@ -33,6 +33,7 @@ import repro_torch.serve  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.weights import params_from_jax, truncate_params  # noqa: E402
+import torch_jax_model as jax_model  # noqa: E402
 from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 TOL = 1e-4
@@ -166,7 +167,7 @@ def test_prefill_cache_and_decode_match_jax(arch):
     toks = np.random.default_rng(11).integers(
         0, jcfg.vocab, size=(B, S)).astype(np.int32)
     jkw, tkw = extras(jcfg, B, S)
-    jl, jc = repro.models.prefill(jcfg, jp, jnp.asarray(toks), capacity,
+    jl, jc = jax_model.prefill(jcfg, jp, jnp.asarray(toks), capacity,
                                   **jkw)
     tl, tc = repro_torch.models.prefill(tcfg, tp, torch.from_numpy(toks),
                                         capacity, **tkw)
@@ -180,7 +181,7 @@ def test_prefill_cache_and_decode_match_jax(arch):
         assert np.abs(np32(plain) - np32(tl)).max() > 1e-3
     for _ in range(3):
         tok = np.array(jnp.argmax(jl[:, -1], axis=-1), np.int32)[:, None]
-        jl, jc = repro.models.decode_step(jcfg, jp, jnp.asarray(tok), jc)
+        jl, jc = jax_model.decode_step(jcfg, jp, jnp.asarray(tok), jc)
         tl, tc = repro_torch.models.decode_step(tcfg, tp,
                                                 torch.from_numpy(tok), tc)
         assert np.abs(np32(tl) - np32(jl)).max() < TOL

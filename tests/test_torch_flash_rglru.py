@@ -25,6 +25,7 @@ from repro.kernels import rglru_ref as jax_rglru_ref  # noqa: E402
 from repro.kernels import rglru_scan as jax_rglru_scan  # noqa: E402
 from repro_torch.kernels import (attention_ref, flash_attention, ops,  # noqa: E402
                                  rglru_ref, rglru_scan)
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 # f32: the same full softmax in f32, summed in another order (XLA's dot vs
 # oneDNN), a few ulp of O(1) outputs. bf16: both sides widen to f32 and

@@ -27,6 +27,8 @@ from repro.models.layers import mlp as jax_mlp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import layers, rglru  # noqa: E402
 from repro_torch.weights import params_from_jax  # noqa: E402
+import torch_jax_model as jax_model  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 ARCH = "recurrentgemma-2b"
 # f32 through 3-5 layers: the two frameworks sum the matmul products in a
@@ -160,7 +162,7 @@ def test_prefill_and_decode_match_jax(model, S, capacity):
     jcfg, tcfg, jparams, tparams = model
     rng = np.random.default_rng(S + capacity)
     toks = rng.integers(0, tcfg.vocab, size=(1, S)).astype(np.int32)
-    jl, jc = repro.models.prefill(jcfg, jparams, jnp.asarray(toks), capacity)
+    jl, jc = jax_model.prefill(jcfg, jparams, jnp.asarray(toks), capacity)
     tl, tc = repro_torch.models.prefill(tcfg, tparams, torch.as_tensor(toks),
                                         capacity)
     assert float(np.max(np.abs(tl.numpy() - np.asarray(jl)))) < TOL
@@ -171,7 +173,7 @@ def test_prefill_and_decode_match_jax(model, S, capacity):
         assert float(np.max(np.abs(tf[k] - jf[k]))) < TOL, k
     for t in range(5):
         tok = rng.integers(0, tcfg.vocab, size=(1, 1)).astype(np.int32)
-        jl, jc = repro.models.decode_step(jcfg, jparams, jnp.asarray(tok), jc)
+        jl, jc = jax_model.decode_step(jcfg, jparams, jnp.asarray(tok), jc)
         tl, tc = repro_torch.models.decode_step(tcfg, tparams,
                                                 torch.as_tensor(tok), tc)
         assert float(np.max(np.abs(tl.numpy() - np.asarray(jl)))) < TOL
@@ -237,7 +239,7 @@ def test_smollm_prefill_through_ops_matches_jax():
     tl, tc = repro_torch.models.prefill(
         tcfg, tparams, torch.as_tensor(toks, dtype=torch.int32), 64,
         attend=counting(ops.attention, calls))
-    jl, jc = repro.models.prefill(jcfg, jparams,
+    jl, jc = jax_model.prefill(jcfg, jparams,
                                   jnp.asarray(toks, jnp.int32), 64)
     assert calls == [{"causal": True, "window": None}] * tcfg.n_layers
     assert float(np.max(np.abs(tl.numpy() - np.asarray(jl)))) < TOL

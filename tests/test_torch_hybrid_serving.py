@@ -29,6 +29,7 @@ import repro.serve  # noqa: E402
 import repro_torch.configs  # noqa: E402
 import repro_torch.serve  # noqa: E402
 from repro_torch.weights import params_from_jax  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 ARCH = "recurrentgemma-2b"
 KW = {"capacity": 48, "max_batch": 2, "decode_chunk": 3}

@@ -28,6 +28,7 @@ from repro_torch.kernels import (KERNEL_ORACLES, check_kernel_oracles,  # noqa: 
                                  paged_attention_ref)
 from torch_paged_cases import (TOL_F32, bf16_excess, multi_case,  # noqa: E402
                                paged_case, tail_lengths, window_lengths)
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 
 def port(case, layer, dtype=torch.float32, fn=paged_attention_ref):

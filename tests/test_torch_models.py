@@ -31,6 +31,8 @@ from repro_torch.models.paged import paged_decode_step  # noqa: E402
 from repro_torch.serve.batch import tail_targets  # noqa: E402
 from repro_torch.serve.steps import make_paged_kernel_decode  # noqa: E402
 from repro_torch.weights import params_from_jax  # noqa: E402
+import torch_jax_model as jax_model  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 OVERRIDES = dict(n_heads=6, n_kv_heads=2, head_dim=32)
 # f32 through 2 layers: the two frameworks sum the matmul products in a
@@ -134,7 +136,7 @@ def test_prefill_matches_jax(model, S, length):
     rng = np.random.default_rng(S)
     toks = rng.integers(0, jcfg.vocab, size=(2, S)).astype(np.int32)
     cap = 24
-    jl, jc = repro.models.prefill(
+    jl, jc = jax_model.prefill(
         jcfg, jparams, jnp.asarray(toks), cap,
         length=None if length is None else jnp.asarray(length, jnp.int32))
     tl, tc = repro_torch.models.prefill(tcfg, tparams, torch.from_numpy(toks),

@@ -8,6 +8,13 @@ exactly: the JAX routing is recomputed from the reference's own lines
 (``src/repro/models/moe.py:52-64``), since ``moe_mlp`` returns only its
 output and aux values. Outputs agree within ``TOL`` in f32 (one matmul's
 sums in another order, ~1e-7 relative) and within one bf16 ulp in bf16.
+
+``moe_mlp`` runs under ``torch.func.vmap`` of ``grad``, as the bilevel
+trainer's per-node gradients need: the vmapped gradient equals a loop of
+per-node gradients bit for bit (on one thread), for joint grouping with
+drops and per-token grouping, and its outputs are bit for bit
+those of the layer's earlier form (``F.one_hot`` and an in-place dispatch,
+transcribed in :func:`inplace_moe_mlp`), which ``vmap`` could not take.
 """
 import pytest
 
@@ -279,3 +286,93 @@ def test_softcap_unembed_and_chunked_ce_match_jax(dtype):
                                      table)}}, torch.from_numpy(x).to(tdt),
                                  torch.from_numpy(labels), chunk=3))
     assert abs(tce - jce) < TOL and abs(tce - plain) > 0.1
+
+
+def inplace_moe_mlp(cfg, p, x, *, per_token=False):
+    """``moe_mlp`` as the port wrote it before it ran under ``vmap``: its
+    one-hots by ``F.one_hot`` and its dispatch by an in-place index write;
+    everything else as now."""
+    B, S, Dm = x.shape
+    Ex, K = cfg.n_experts, cfg.top_k
+    N = B * S
+    G = N if per_token else max(int(cfg.moe_groups), 1)
+    if N % G:
+        G = 1
+    n = N // G
+    flat = x.reshape(G, n, Dm)
+    logits = flat.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[..., :K], top_e[..., :K]
+    top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
+    C = max(int(cfg.capacity_factor * n * K / Ex + 0.999), 4)
+    assign = top_e.reshape(G, n * K)
+    onehot = torch.nn.functional.one_hot(assign, Ex).to(torch.int32)
+    pos = torch.sum((torch.cumsum(onehot, dim=1) - 1) * onehot, dim=-1)
+    keep = pos < C
+    dest = torch.where(keep, assign * C + pos, Ex * C)
+    rep = torch.repeat_interleave(flat, K, dim=1)
+    buf = torch.zeros((G, Ex * C + 1, Dm), dtype=x.dtype)
+    groups = torch.arange(G)[:, None]
+    buf[groups, dest] = rep
+    expert_in = buf[:, :Ex * C].reshape(G, Ex, C, Dm).transpose(0, 1)
+    dt = x.dtype
+    xe = expert_in.reshape(Ex, G * C, Dm)
+    h = torch.nn.functional.silu(torch.bmm(xe, p["wg"].to(dt))) * \
+        torch.bmm(xe, p["wi"].to(dt))
+    expert_out = torch.bmm(h, p["wo"].to(dt)).reshape(Ex, G, C, Dm)
+    r = {"top_e": top_e, "top_w": top_w, "keep": keep, "dest": dest}
+    out = tmoe.combine(r, expert_out)
+    frac_tokens = torch.mean(torch.nn.functional.one_hot(
+        top_e[..., 0], Ex).float(), dim=(0, 1))
+    aux_lb = Ex * torch.sum(frac_tokens * torch.mean(probs, dim=(0, 1)))
+    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return out.reshape(B, S, Dm), {"moe_lb": aux_lb, "moe_z": z_loss}
+
+
+@pytest.mark.parametrize("per_token", [False, True],
+                         ids=["joint", "per-token"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_outputs_equal_the_in_place_dispatch_bit_for_bit(case, per_token):
+    kw, shape = CASES[case]
+    for dtype in ("float32", "bfloat16"):
+        _, tcfg = configs(dtype, **kw)
+        _, tp = both(weights())
+        x = torch.from_numpy(inputs((*shape, D))).to(tcfg.dtype)
+        out, aux = tmoe.moe_mlp(tcfg, tp, x, per_token=per_token)
+        want, want_aux = inplace_moe_mlp(tcfg, tp, x, per_token=per_token)
+        assert torch.equal(out, want)
+        assert all(torch.equal(aux[k], want_aux[k]) for k in want_aux)
+
+
+@pytest.mark.parametrize("per_token", [False, True],
+                         ids=["joint", "per-token"])
+def test_vmapped_gradient_equals_the_per_node_loop(per_token):
+    """Three nodes, each with its own weights and tokens; capacity factor
+    1 (joint routing drops, so the overflow row is written and read under
+    ``vmap``; per-token routing keeps every token): the gradient of the
+    output's square sum plus both aux losses, with respect to the weights
+    and the input."""
+    _, tcfg = configs(capacity_factor=1.0, moe_groups=2)
+    _, tp = both(weights())
+    nodes = 3
+    ps = {k: torch.stack([v * (1 + 0.25 * i) for i in range(nodes)])
+          for k, v in tp.items()}
+    xs = torch.from_numpy(inputs((nodes, 4, 16, D)))
+    keep = [tmoe.route(tcfg, {k: v[i] for k, v in ps.items()},
+                       xs[i].reshape(2, -1, D))["keep"]
+            for i in range(nodes)]
+    if not per_token:
+        assert all((~k).any() for k in keep)
+
+    def loss(p, x):
+        out, aux = tmoe.moe_mlp(tcfg, p, x, per_token=per_token)
+        return torch.sum(out ** 2) + aux["moe_lb"] + aux["moe_z"]
+
+    grad = torch.func.grad(loss, argnums=(0, 1))
+    batched = torch.func.vmap(grad)(ps, xs)
+    for i in range(nodes):
+        gp, gx = grad({k: v[i] for k, v in ps.items()}, xs[i])
+        assert all(torch.equal(batched[0][k][i], gp[k]) for k in gp)
+        assert torch.equal(batched[1][i], gx) and float(gx.abs().max()) > 0
+

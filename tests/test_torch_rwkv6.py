@@ -34,6 +34,8 @@ import repro_torch.serve  # noqa: E402
 from repro.models import rwkv6 as jax_rwkv6  # noqa: E402
 from repro_torch.models import rwkv6  # noqa: E402
 from repro_torch.weights import params_from_jax  # noqa: E402
+import torch_jax_model as jax_model  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 ARCH = "rwkv6-1.6b"
 # f32 through 2-3 layers: the matmuls' and the WKV dot products' summation
@@ -124,7 +126,7 @@ def test_prefill_cache_and_decode_steps_match_jax(model):
     then four decode steps fed the JAX greedy tokens."""
     jcfg, tcfg, jparams, tparams = model
     toks = np.random.default_rng(1).integers(0, 512, size=(2, 23))
-    jl, jc = repro.models.prefill(jcfg, jparams,
+    jl, jc = jax_model.prefill(jcfg, jparams,
                                   jnp.asarray(toks, jnp.int32), 32)
     tl, tc = repro_torch.models.prefill(
         tcfg, tparams, torch.as_tensor(toks, dtype=torch.int32), 32)
@@ -136,7 +138,7 @@ def test_prefill_cache_and_decode_steps_match_jax(model):
         assert close(leaf, jc["state"][k]) < RTOL, k
     for _ in range(4):
         tok = np.array(jnp.argmax(jl[:, -1], -1), np.int32)[:, None]
-        jl, jc = repro.models.decode_step(jcfg, jparams, jnp.asarray(tok),
+        jl, jc = jax_model.decode_step(jcfg, jparams, jnp.asarray(tok),
                                           jc)
         tl, tc = repro_torch.models.decode_step(tcfg, tparams,
                                                 torch.as_tensor(tok), tc)

@@ -31,6 +31,7 @@ import repro_torch.serve.batch as torch_batch  # noqa: E402
 import repro_torch.serve.scheduler as torch_sched  # noqa: E402
 from repro_torch.kernels import paged_attention  # noqa: E402
 from repro_torch.weights import params_from_jax  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 OVERRIDES = dict(n_heads=6, n_kv_heads=2, head_dim=32)
 

@@ -42,6 +42,8 @@ from repro_torch.serve.batch import (init_slot_cache, scatter_tokens,  # noqa: E
 from repro_torch.serve.spec import SpecConfig, make_spec_decode  # noqa: E402
 from repro_torch.serve.steps import make_slot_decode_step  # noqa: E402
 from repro_torch.weights import params_from_jax, truncate_params  # noqa: E402
+import torch_jax_model as jax_model  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 OVERRIDES = dict(n_heads=6, n_kv_heads=2, head_dim=32, n_layers=4)
 DAMP = 0.3
@@ -189,10 +191,10 @@ def test_decode_step_matches_jax(model):
     jcfg, tcfg, jparams, tparams = model[:4]
     rng = np.random.default_rng(0)
     toks = rng.integers(0, jcfg.vocab, size=(2, 7)).astype(np.int32)
-    _, jc = repro.models.prefill(jcfg, jparams, jnp.asarray(toks), 16)
+    _, jc = jax_model.prefill(jcfg, jparams, jnp.asarray(toks), 16)
     _, tc = prefill(tcfg, tparams, torch.from_numpy(toks), 16)
     tok = rng.integers(0, jcfg.vocab, size=(2, 1)).astype(np.int32)
-    jl, jc = repro.models.decode_step(jcfg, jparams, jnp.asarray(tok), jc)
+    jl, jc = jax_model.decode_step(jcfg, jparams, jnp.asarray(tok), jc)
     tl, tc = decode_step(tcfg, tparams, torch.from_numpy(tok), tc)
     assert tuple(tl.shape) == jl.shape == (2, 1, jcfg.vocab)
     assert err(tl, jl) < TOL and tc["idx"] == int(jc["idx"]) == 8
@@ -233,7 +235,7 @@ def test_slot_cache_layout_matches_jax(model):
     the JAX package's do."""
     jcfg, tcfg, jparams, tparams = model[:4]
     prompt = np.arange(3, 12, dtype=np.int32)
-    _, jreq = repro.models.prefill(jcfg, jparams, jnp.asarray(prompt[None]),
+    _, jreq = jax_model.prefill(jcfg, jparams, jnp.asarray(prompt[None]),
                                    16)
     jc = jax_write_slot(jax_init_slot_cache(jcfg, 3, 16), jreq, 2,
                         jax_slot_axes(jcfg, 16, params=jparams))

@@ -34,6 +34,7 @@ import repro_torch.serve.batch as torch_batch  # noqa: E402
 from repro.analysis.contracts import allocator_invariants  # noqa: E402
 from repro_torch.kernels import paged_attention, paged_attention_multi  # noqa: E402
 from repro_torch.weights import params_from_jax, truncate_params  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 OVERRIDES = dict(n_heads=6, n_kv_heads=2, head_dim=32, n_layers=4)
 DAMP = 0.3

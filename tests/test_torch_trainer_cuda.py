@@ -1,12 +1,15 @@
 """The port's decentralized bilevel LM trainer on the card: fused dispatch
 (one CUDA graph replay per chunk) against per-step dispatch, bit for bit,
-and the card against the CPU, on the reduced configs (f32). JAX-free, so
-it runs on a GPU host without JAX:
+and the card against the CPU, on the reduced configs (f32) of every
+family; the vmapped gradient of the moe, vlm and audio families the same
+on every call (the MoE dispatch and combine, the image fusion). JAX-free,
+so it runs on a GPU host without JAX:
 
   PYTHONPATH=src python -m pytest --noconftest -m cuda \\
       tests/test_torch_trainer_cuda.py
 
-Every test skips without a card. Full width is ``chip_smoke.py`` phase 13.
+Every test skips without a card. Full width is ``chip_smoke.py`` phases 13
+(smollm-360m) and 17 (whisper-tiny).
 """
 import pytest
 
@@ -19,10 +22,13 @@ from repro_torch.configs import get  # noqa: E402
 from repro_torch.data import (make_device_lm_sampler,  # noqa: E402
                               make_lm_step_batch, make_node_batch)
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.models import init_params, loss_fn  # noqa: E402
 from repro_torch.train import TrainerConfig, make_trainer_engine  # noqa: E402
 
 K, B, S, STEPS, EVAL, SEED = 2, 2, 16, 5, 2, 0
-ARCHS = ("smollm-360m", "recurrentgemma-2b", "rwkv6-1.6b")
+NEW_ARCHS = ("phi3.5-moe-42b-a6.6b", "grok-1-314b", "chameleon-34b",
+             "whisper-tiny")
+ARCHS = ("smollm-360m", "recurrentgemma-2b", "rwkv6-1.6b") + NEW_ARCHS
 # the card against the CPU, TF32 off: the same f32 ops summed in other
 # orders, a few ulps a step (as chip_smoke.py phase 13's limit)
 TOL = 1e-4
@@ -119,3 +125,25 @@ def test_cli_on_the_card(cuda_device, tmp_path):
     assert res.steps == [0, 2, 4] and all(np.isfinite(res.upper_loss))
     assert sorted(p.name for p in tmp_path.iterdir())[-1] == \
         "ckpt_00000004.npz"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_vmapped_gradient_is_the_same_every_call(cuda_device, arch):
+    """The loss's gradient vmapped over K nodes' batches (with their
+    extras), twice on the card: bit for bit the same, which fused and
+    per-step runs being equal rests on."""
+    cfg = get(arch).reduced()
+    params = init_params(cfg, torch.Generator(
+        device=cuda_device).manual_seed(SEED), device=cuda_device)
+    batch = make_lm_step_batch(cfg, torch.Generator(
+        device=cuda_device).manual_seed(1), 4, B, S, J=2)["f"]
+
+    def grads():
+        return leaves(torch.func.vmap(lambda b: torch.func.grad(
+            lambda q: loss_fn(cfg, q, b))(params))(batch))
+
+    first, second = grads(), grads()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(bool(torch.isfinite(a).all()) for a in first)
+

@@ -1,24 +1,31 @@
 """The port's training path vs the JAX package's, on identical weights:
-``forward`` (logits and final hidden states), ``chunked_ce`` (S a multiple
-of the chunk, and not), ``loss_fn``, its gradient, the Hessian-vector
-product of the LM bilevel problem's lower loss, ``_layer_reg`` and
-``x_dim``, for the dense, hybrid and ssm families.
+``forward`` (logits, final hidden states and the MoE aux losses),
+``chunked_ce`` (S a multiple of the chunk, and not), ``loss_fn`` (with the
+MoE aux terms), its gradient, the Hessian-vector product of the LM bilevel
+problem's lower loss, ``_layer_reg`` and ``x_dim``, for every family.
 
 Each family is its ``.reduced()`` config cut further to narrow widths
 (d_model 32, two heads of 16, d_ff 64, vocab 64, f32): the dense family at 2
 layers, the hybrid at 4 (one stacked block and a trailing ``rem``
 layer, with a local window of 8 that the 12-token rows run past), the ssm
-at 2. The JAX tree is initialised by ``repro.models.init_params`` and
-carried over with ``params_from_jax``; tokens come from the JAX package's
-``lm_batch``. The JAX side is computed once per family (a module-scoped
-fixture).
+at 2, the moe (phi3.5-moe) at 2 with 4 experts top-2, jointly routed in one
+group and in ``moe_groups`` 2, the vlm (chameleon) at 2 with 4 image
+tokens, the audio (whisper) at 2 + 2 layers over 16 frames. The JAX tree is
+initialised by ``repro.models.init_params`` and carried over with
+``params_from_jax``; tokens come from the JAX package's ``lm_batch``, the
+vlm and audio extras from its ``vision_stub`` and ``audio_stub``
+(``repro.data.lm.lm_batch_extras``). The JAX side is computed once per
+family (a module-scoped fixture).
 
 Tolerances (f32, the two frameworks sum products in other orders):
-logits and hidden states (O(1)) within TOL_ACT absolute; the losses within
-TOL_LOSS; gradients and HVPs within TOL_GRAD of each leaf's largest
-magnitude; ``_layer_reg`` within 1e-6 relative. Measured at these sizes:
-activations ≤ 1.9e-6, losses ≤ 4.8e-7, gradients ≤ 1.9e-6 and HVPs ≤
-3.1e-6 of the leaf's largest entry, ``_layer_reg`` ≤ 1.5e-7 relative.
+logits and hidden states (O(1)) within TOL_ACT absolute; the losses and the
+MoE aux losses within TOL_LOSS; gradients and HVPs within TOL_GRAD of each
+leaf's largest magnitude; ``_layer_reg`` within 1e-6 relative. MoE routing
+is discrete: a token routed to another expert in one package would move
+its row by O(1), far past these limits. Measured at these sizes (all
+seven cases): activations ≤ 1.9e-6, losses and aux losses ≤ 9.5e-7,
+gradients ≤ 1.9e-6 and HVPs ≤ 3.1e-6 of the leaf's largest entry,
+``_layer_reg`` ≤ 1.5e-7 relative.
 """
 import importlib
 
@@ -31,9 +38,11 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 import repro.configs  # noqa: E402
+import repro.data.lm as rdata_lm  # noqa: E402
 import repro.models.transformer as rtf  # noqa: E402
 import repro.train.bilevel_lm as rbl  # noqa: E402
 import repro_torch.configs  # noqa: E402
+import repro_torch.data.lm as pdata_lm  # noqa: E402
 import repro_torch.models.transformer as ptf  # noqa: E402
 import repro_torch.train.bilevel_lm as pbl  # noqa: E402
 from repro.core.hypergrad import hvp_yy as rhvp  # noqa: E402
@@ -46,11 +55,16 @@ from torch_threads import one_intra_op_thread  # noqa: E402,F401
 TOL_ACT, TOL_LOSS, TOL_GRAD = 1e-4, 1e-5, 1e-4
 B, S = 2, 12
 NARROW = dict(d_model=32, n_heads=2, head_dim=16, d_ff=64, vocab=64)
+MOE = dict(NARROW, n_kv_heads=2, n_experts=4, top_k=2)
 FAMILIES = {
     "dense": ("smollm-360m", dict(NARROW, n_kv_heads=2)),
     "hybrid": ("recurrentgemma-2b", dict(NARROW, n_kv_heads=1, n_layers=4,
                                          lru_width=32, local_window=8)),
     "ssm": ("rwkv6-1.6b", dict(NARROW, n_kv_heads=2)),
+    "moe": ("phi3.5-moe-42b-a6.6b", MOE),
+    "moe-groups": ("phi3.5-moe-42b-a6.6b", dict(MOE, moe_groups=2)),
+    "vlm": ("chameleon-34b", dict(NARROW, n_kv_heads=2, n_img_tokens=4)),
+    "audio": ("whisper-tiny", dict(NARROW, n_kv_heads=2, src_len=16)),
 }
 
 
@@ -60,8 +74,16 @@ def configs(family):
             repro_torch.configs.get(arch).reduced().with_overrides(**kw))
 
 
+EXTRAS = ("image_embeds", "image_pos", "src_embeds")
+
+
 def t(a):
     return torch.from_numpy(np.array(a))
+
+
+def extras(batch):
+    """The batch's modality extras, as ``forward``'s keyword arguments."""
+    return {k: batch[k] for k in EXTRAS if k in batch}
 
 
 def to_np(tree):
@@ -104,6 +126,7 @@ def case(request):
     jcfg, tcfg = configs(request.param)
     jparams = repro.models.init_params(jcfg, jax.random.PRNGKey(3))
     batch = rlm_batch(jax.random.PRNGKey(4), jcfg.vocab, B, S)
+    batch.update(rdata_lm.lm_batch_extras(jcfg, jax.random.PRNGKey(6), B, S))
     rng = np.random.default_rng(5)
     x = jnp.asarray(rng.normal(-2.0, 1.0, rbl.x_dim(jcfg)), jnp.float32)
     v = jax.tree.map(
@@ -113,11 +136,13 @@ def case(request):
     @jax.jit
     def reference(params, batch, x, v):
         """Every compared quantity in one compiled program."""
-        hidden, _ = rtf.forward(jcfg, params, batch["tokens"],
-                                return_hidden=True)
+        kw = extras(batch)
+        hidden, aux = rtf.forward(jcfg, params, batch["tokens"],
+                                  return_hidden=True, **kw)
         return {
-            "logits": rtf.forward(jcfg, params, batch["tokens"])[0],
+            "logits": rtf.forward(jcfg, params, batch["tokens"], **kw)[0],
             "hidden": hidden,
+            "aux": aux,
             "ce4": rtf.chunked_ce(jcfg, params, hidden, batch["labels"], 4),
             "ce5": rtf.chunked_ce(jcfg, params, hidden, batch["labels"], 5),
             "loss": rtf.loss_fn(jcfg, params, batch),
@@ -138,11 +163,21 @@ def case(request):
 
 
 def test_forward_logits_and_hidden_states(case):
-    _, p, r = case
-    logits, aux = ptf.forward(p["cfg"], p["params"], p["batch"]["tokens"])
-    hidden, _ = ptf.forward(p["cfg"], p["params"], p["batch"]["tokens"],
-                            return_hidden=True)
-    assert aux == {} and logits.shape == (B, S, p["cfg"].vocab)
+    """And the MoE aux losses, each summed over the layers; the other
+    families return none."""
+    family, p, r = case
+    kw = extras(p["batch"])
+    logits, aux = ptf.forward(p["cfg"], p["params"], p["batch"]["tokens"],
+                              **kw)
+    hidden, haux = ptf.forward(p["cfg"], p["params"], p["batch"]["tokens"],
+                               return_hidden=True, **kw)
+    assert logits.shape == (B, S, p["cfg"].vocab)
+    assert aux.keys() == haux.keys() == r["aux"].keys() == (
+        {"moe_lb", "moe_z"} if family.startswith("moe") else set())
+    for name in r["aux"]:
+        assert aux[name].shape == ()
+        np.testing.assert_allclose(float(aux[name]), r["aux"][name], rtol=0,
+                                   atol=TOL_LOSS)
     np.testing.assert_allclose(logits.numpy(), r["logits"], rtol=0,
                                atol=TOL_ACT)
     np.testing.assert_allclose(hidden.numpy(), r["hidden"], rtol=0,
@@ -155,7 +190,7 @@ def test_chunked_ce(case, chunk):
     packages fall back to one chunk of S."""
     _, p, r = case
     hidden, _ = ptf.forward(p["cfg"], p["params"], p["batch"]["tokens"],
-                            return_hidden=True)
+                            return_hidden=True, **extras(p["batch"]))
     ce = ptf.chunked_ce(p["cfg"], p["params"], hidden, p["batch"]["labels"],
                         chunk)
     assert ce.dtype == torch.float32 and ce.shape == ()
@@ -164,9 +199,16 @@ def test_chunked_ce(case, chunk):
 
 
 def test_loss_fn_and_its_gradient(case):
-    _, p, r = case
+    """The moe family's loss adds ``0.01 moe_lb + 0.001 moe_z`` to the
+    cross-entropy."""
+    family, p, r = case
     loss = ptf.loss_fn(p["cfg"], p["params"], p["batch"])
     np.testing.assert_allclose(float(loss), r["loss"], rtol=0, atol=TOL_LOSS)
+    if family.startswith("moe"):
+        ce = r["ce4"]
+        want = ce + 0.01 * r["aux"]["moe_lb"] + 0.001 * r["aux"]["moe_z"]
+        np.testing.assert_allclose(float(loss), want, rtol=0, atol=TOL_LOSS)
+        assert abs(float(loss) - ce) > 10 * TOL_LOSS
     grad = torch.func.grad(lambda q: ptf.loss_fn(p["cfg"], q, p["batch"]))(
         p["params"])
     assert_tree_close(grad, r["grad"])
@@ -202,6 +244,38 @@ def test_layer_reg_and_x_dim(case):
                                         - torch.mean(s ** 2))
         got = pbl._layer_reg(p["cfg"], p["x"], bumped) - reg
         np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
+
+
+@pytest.mark.parametrize("n_enc", [2, 3], ids=["shared", "apart"])
+def test_layer_reg_weighs_the_encoder_layers_as_the_reference(n_enc):
+    """The audio family's ``enc_layers`` name ``layers``: with
+    ``n_enc_layers == n_layers`` (whisper-tiny's 4 + 4; 2 + 2 here) encoder
+    layer i shares x[i] with decoder layer i, with 3 + 2 every encoder leaf
+    goes to x[-1], in both packages."""
+    arch, kw = FAMILIES["audio"]
+    jcfg, tcfg = (get(arch).reduced().with_overrides(**kw, n_enc_layers=n_enc)
+                  for get in (repro.configs.get, repro_torch.configs.get))
+    jparams = repro.models.init_params(jcfg, jax.random.PRNGKey(3))
+    params = params_from_jax(to_np(jparams), device="cpu")
+    x = np.random.default_rng(5).normal(-2.0, 1.0,
+                                        rbl.x_dim(jcfg)).astype(np.float32)
+    reg = pbl._layer_reg(tcfg, t(x), params)
+    np.testing.assert_allclose(float(reg), float(rbl._layer_reg(
+        jcfg, jnp.asarray(x), jparams)), rtol=1e-6, atol=0)
+    # moving encoder layer 0's norm scale moves the reg by its weight times
+    # the mean square change over the leaf it is averaged in
+    s = params["enc_layers"]["norm1"]["scale"]
+    bumped_s = s.clone()
+    bumped_s[0] += 1.0
+    enc = {**params["enc_layers"], "norm1": {**params["enc_layers"]["norm1"],
+                                             "scale": bumped_s}}
+    change = torch.sum(bumped_s[0] ** 2) - torch.sum(s[0] ** 2)
+    weight, count = ((t(x)[0], s[0].numel()) if n_enc == tcfg.n_layers
+                     else (t(x)[-1], s.numel()))
+    got = pbl._layer_reg(tcfg, t(x), {**params, "enc_layers": enc}) - reg
+    np.testing.assert_allclose(float(got),
+                               float(torch.exp(weight) * change / count),
+                               rtol=1e-4)
 
 
 def test_gradient_under_vmap_is_the_same_every_call():
@@ -246,26 +320,17 @@ def test_training_path_reaches_no_kernel_and_no_plain_version(monkeypatch):
         monkeypatch.setattr(
             importlib.import_module(f"repro_torch.kernels.{mod}"), name,
             refuse)
-    for arch, _ in FAMILIES.values():
+    archs = sorted({arch for arch, _ in FAMILIES.values()})
+    assert len(archs) == len(ptf.FAMILIES)
+    for arch in archs:
         # the reduced widths: the kernels' wrappers check head sizes first
         cfg = repro_torch.configs.get(arch).reduced()
         params = ptf.init_params(cfg, torch.Generator().manual_seed(0),
                                  device="cpu")
-        tokens = torch.randint(0, cfg.vocab, (B, S),
-                               generator=torch.Generator().manual_seed(1))
-        batch = {"tokens": tokens, "labels": tokens}
+        gen = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen)
+        kw = pdata_lm.lm_batch_extras(cfg, gen, B, S)
+        batch = {"tokens": tokens, "labels": tokens, **kw}
         torch.func.grad(lambda q: ptf.loss_fn(cfg, q, batch))(params)
         with pytest.raises(AssertionError, match="plain version ran"):
-            ptf.prefill(cfg, params, tokens, capacity=S)
-
-
-@pytest.mark.parametrize("family", ["moe", "vlm", "audio"])
-def test_unported_families_raise(family):
-    """The moe, vlm and audio families serve but do not train yet: their
-    training forward raises, naming ROADMAP.md's queue 1 item."""
-    _, cfg = configs("dense")
-    moe = dict(n_experts=4, top_k=2) if family == "moe" else {}
-    cfg = cfg.with_overrides(family=family, **moe)
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        ptf.forward(cfg, {}, tokens)
+            ptf.prefill(cfg, params, tokens, capacity=S, **kw)

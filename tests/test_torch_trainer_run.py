@@ -8,7 +8,8 @@ x0 and θ0 (the reference's, carried over) on the reference's own batches
 (recomputed from its ``key_schedule`` with its ``make_lm_step_batch`` and
 handed to the port in order) and J̃ (``reference_jtilde``), for ``mdbo``,
 ``vrdbo`` and ``gt_sgd`` on a tiny dense model and ``mdbo`` on a tiny ssm
-model, K = 2, J = 2 with randomized truncation. Both run the same f32
+and a tiny moe model (phi3.5-moe, 4 experts top-2), K = 2, J = 2 with
+randomized truncation. Both run the same f32
 arithmetic through other libraries, so every eval's losses agree within
 TOL_LOSS, the consensus errors within TOL_CONS relative (or 1e-12: the
 x consensus is rounding noise, ~1e-13), and every leaf of the final state
@@ -55,9 +56,11 @@ K, B, S, J, STEPS, EVAL, SEED = 2, 2, 8, 2, 4, 2, 0
 TOL_LOSS, TOL_CONS, TOL_STATE = 1e-5, 1e-4, 1e-4
 NARROW = dict(d_model=32, n_heads=2, n_kv_heads=2, head_dim=16, d_ff=64,
               vocab=64)
-ARCHS = {"dense": "smollm-360m", "ssm": "rwkv6-1.6b"}
+ARCHS = {"dense": "smollm-360m", "ssm": "rwkv6-1.6b",
+         "moe": "phi3.5-moe-42b-a6.6b", "vlm": "chameleon-34b",
+         "audio": "whisper-tiny"}
 RUNS = [("mdbo", "dense"), ("vrdbo", "dense"), ("gt_sgd", "dense"),
-        ("mdbo", "ssm")]
+        ("mdbo", "ssm"), ("mdbo", "moe")]
 HP = dict(eta=0.1, beta1=0.05, beta2=0.5)
 
 
@@ -181,22 +184,36 @@ def test_whole_run_parity(reference_runs, algo, family):
     assert all(np.isfinite(pres.upper_loss))
 
 
-@pytest.mark.parametrize("algo", ["mdbo", "vrdbo", "gt_sgd"])
-def test_fused_equals_per_step_bitwise_on_cpu(algo):
-    """The engine's own randomness: the LM batches from its batch generator,
-    J̃ from its own, the initial weights from its init generator."""
-    _, tcfg = configs("dense")
+def assert_fused_equals_per_step(algo, family):
+    """Both dispatches on the engine's own randomness (the LM batches from
+    its batch generator, J̃ from its own, the initial weights from its init
+    generator): every eval and every state leaf bit for bit."""
+    _, tcfg = configs(family)
     tc = ptrain.TrainerConfig(algo=algo, J=J, mix="ring", hp=HParams(**HP))
     sampler = pdata.make_device_lm_sampler(tcfg, tc, K, B, S)
     ev = pdata.make_node_batch(tcfg, torch.Generator().manual_seed(9), B, S)
-    out = [port_engine(algo, "dense", dispatch).run(
+    out = [port_engine(algo, family, dispatch).run(
         sampler, ev, steps=3, seed=3, eval_every=2, return_state=True)
         for dispatch in ("per_step", "fused")]
     (rp, sp), (rf, sf) = out
     assert rp.upper_loss == rf.upper_loss and rp.steps == [0, 2, 3]
     assert rp.consensus_y == rf.consensus_y
+    assert all(np.isfinite(rp.upper_loss))
     p, f = leaves(tuple(sp)), leaves(tuple(sf))
     assert all(np.array_equal(p[k], f[k]) for k in p)
+
+
+@pytest.mark.parametrize("algo", ["mdbo", "vrdbo", "gt_sgd"])
+def test_fused_equals_per_step_bitwise_on_cpu(algo):
+    assert_fused_equals_per_step(algo, "dense")
+
+
+@pytest.mark.parametrize("family", ["moe", "vlm", "audio"])
+def test_fused_equals_per_step_bitwise_with_every_family(family):
+    """MDBO on the moe, vlm and audio families: the MoE dispatch and
+    combine, the image fusion and the encoder under the per-node ``vmap``,
+    the vlm and audio batches' extras in the fused chunk's buffers."""
+    assert_fused_equals_per_step("mdbo", family)
 
 
 def test_lm_batch_draws_the_reference_distribution():
@@ -246,6 +263,71 @@ def test_lm_step_batch_structure():
     assert all(torch.equal(again[p][k], b[p][k]) for p in b for k in b[p])
     node = pdata.make_node_batch(tcfg, gen, B, S)
     assert tuple(node["tokens"].shape) == (B, S)
+
+
+def test_lm_batch_extras_draw_the_reference_distribution():
+    """The vlm and audio extras: shapes, dtypes, the image positions
+    ``arange(n)`` in every row with ``n = min(n_img_tokens, seq)``, and
+    embeddings of mean 0 and standard deviation 0.02 (the JAX stubs' law)
+    over 1.3-5.1 x 10⁵ draws; none for the other families; the generator's
+    seed fixes the draw."""
+    rows = 1000
+    _, vlm = configs("vlm")
+    for seq, n in ((8, 4), (3, 3)):
+        ex = pdata.lm_batch_extras(vlm, torch.Generator().manual_seed(0),
+                                   rows, seq)
+        assert set(ex) == {"image_embeds", "image_pos"}
+        assert tuple(ex["image_embeds"].shape) == (rows, n, vlm.d_model)
+        assert ex["image_embeds"].dtype == vlm.dtype
+        assert ex["image_pos"].dtype == torch.int32
+        assert torch.equal(ex["image_pos"],
+                           torch.arange(n, dtype=torch.int32).expand(rows, n))
+    _, audio = configs("audio")
+    ex = pdata.lm_batch_extras(audio, torch.Generator().manual_seed(0), rows,
+                               S)
+    assert set(ex) == {"src_embeds"}
+    assert tuple(ex["src_embeds"].shape) == (rows, audio.src_len,
+                                             audio.d_model)
+    for emb in (ex["src_embeds"], pdata.lm_batch_extras(
+            vlm, torch.Generator().manual_seed(1), rows, S)["image_embeds"]):
+        e = emb.double()
+        assert abs(float(e.mean())) < 5 * 0.02 / e.numel() ** 0.5
+        assert abs(float(e.std()) / 0.02 - 1) < 0.01
+    again = pdata.lm_batch_extras(audio, torch.Generator().manual_seed(0),
+                                  rows, S)
+    assert torch.equal(again["src_embeds"], ex["src_embeds"])
+    for family in ("dense", "moe"):
+        assert pdata.lm_batch_extras(configs(family)[1], torch.Generator(),
+                                     rows, S) == {}
+    # the JAX stubs draw the same law
+    ref = np.asarray(rdata.lm_batch_extras(configs("audio")[0],
+                                           jax.random.PRNGKey(0), rows,
+                                           S)["src_embeds"], np.float64)
+    assert ref.shape == tuple(ex["src_embeds"].shape)
+    assert abs(ref.std() / 0.02 - 1) < 0.01
+
+
+@pytest.mark.parametrize("family", ["vlm", "audio"])
+def test_lm_step_batch_structure_with_extras(family):
+    """Every leaf keeps its own trailing shape under the node and J axes:
+    the tokens ``[..., per_node, seq]``, the extras ``[..., per_node, *their
+    own]``; each node and Neumann term draws its own extras."""
+    _, tcfg = configs(family)
+    b = pdata.make_lm_step_batch(tcfg, torch.Generator().manual_seed(0), 3,
+                                 B, S, J=J)
+    node = pdata.make_node_batch(tcfg, torch.Generator().manual_seed(0), B,
+                                 S)
+    assert set(node) > {"tokens", "labels"}
+    for part, lead in (("f", (3,)), ("g", (3,)), ("h", (3, J))):
+        assert set(b[part]) == set(node)
+        for k, leaf in b[part].items():
+            assert tuple(leaf.shape) == lead + tuple(node[k].shape), k
+            assert leaf.dtype == node[k].dtype, k
+    name = "image_embeds" if family == "vlm" else "src_embeds"
+    assert not torch.equal(b["f"][name][0], b["f"][name][1])
+    assert not torch.equal(b["h"][name][:, 0], b["h"][name][:, 1])
+    if family == "vlm":
+        assert torch.equal(b["h"]["image_pos"][1, 1], node["image_pos"])
 
 
 def test_make_step_fns_match_the_engine():
@@ -327,6 +409,39 @@ def test_checkpoints_cross_restore_both_ways(tmp_path):
         pckpt.restore(str(tmp_path / "r"), 9, bad)
 
 
+@pytest.mark.parametrize("family", ["moe", "audio"])
+def test_model_checkpoints_cross_restore(tmp_path, family):
+    """A node-stacked MoE tree (``router``, ``wi``, ``wg``, ``wo``) and an
+    audio tree (``enc_layers``, ``enc_norm``, ``cross``, ``norm3``) written
+    by either package restore in the other, leaf for leaf."""
+    jcfg, tcfg = configs(family)
+    y = jax.tree.map(lambda a: np.stack([np.asarray(a), -np.asarray(a)]),
+                     repro.models.init_params(jcfg, jax.random.PRNGKey(1)))
+    jt = {"x": jnp.arange(2 * rtrain.x_dim(jcfg), dtype=jnp.float32
+                          ).reshape(2, -1),
+          "y": jax.tree.map(jnp.asarray, y)}
+    pt = {"x": torch.from_numpy(np.asarray(jt["x"])),
+          "y": params_from_jax(y, device="cpu")}
+    names = {"moe": ("router", "wi", "wg", "wo"),
+             "audio": ("enc_layers", "enc_norm", "cross", "norm3")}[family]
+    assert all(any(f"['{n}']" in k for k in leaves(pt)) for n in names)
+    pckpt.save(str(tmp_path / "p"), 5, pt)
+    back = jleaves(rckpt.restore(str(tmp_path / "p"), 5, jt))
+    assert back.keys() == jleaves(jt).keys()
+    for k, v in jleaves(jt).items():
+        assert back[k].dtype == v.dtype and np.array_equal(back[k], v), k
+    rckpt.save(str(tmp_path / "r"), 6, jt)
+    template = {"x": torch.zeros(2, ptrain.x_dim(tcfg)),
+                "y": pengine.replicate(init_params(
+                    tcfg, torch.Generator().manual_seed(0), device="cpu"), 2)}
+    got, want = leaves(pckpt.restore(str(tmp_path / "r"), 6, template)), \
+        leaves(pt)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert np.array_equal(got[k], want[k]), k
+
+
 def test_cli_trains_and_writes_checkpoints(tmp_path, capsys):
     """``python -m repro_torch.launch.train`` in-process on the CPU: its
     lines, its checkpoints at the eval boundaries, and a restore that gives
@@ -376,15 +491,6 @@ def test_not_ported_paths_raise():
                      (ptrain.state_shape, (tcfg, tc, K))):
         with pytest.raises(NotImplementedError, match="item"):
             fn(*args)
-    gen = torch.Generator().manual_seed(0)
-    for family in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            pdata.make_node_batch(tcfg.with_overrides(family=family), gen,
-                                  B, S)
-    moe = tcfg.with_overrides(family="moe", n_experts=4, top_k=2)
-    init_params(moe, gen, device="cpu")   # the moe family serves
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        ptrain.make_trainer_engine(moe, tc, K, device="cpu")
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -419,9 +525,10 @@ def test_new_modules_pass_the_reference_ast_lint():
     files = (sorted((port / "train").glob("*.py"))
              + sorted((port / "checkpoint").glob("*.py"))
              + [port / "launch" / "train.py", port / "data" / "lm.py",
-                port / "models" / "transformer.py",
+                port / "data" / "synthetic.py",
+                port / "models" / "transformer.py", port / "models" / "moe.py",
                 port / "models" / "rglru.py", port / "models" / "rwkv6.py"])
-    assert len(files) == 10
+    assert len(files) == 12
     for f in files:
         text = f.read_text()
         assert "noqa" not in text

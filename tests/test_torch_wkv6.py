@@ -29,6 +29,7 @@ from repro.kernels.wkv6_scan import wkv6_scan as jax_wkv6_scan  # noqa: E402
 from repro.models.rwkv6 import _wkv_scan as jax_wkv_scan  # noqa: E402
 from repro_torch.kernels import (ops, wkv6_ref, wkv6_scan,  # noqa: E402
                                  wkv6_scan_ref)
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 # (BH, S, Dh, Pallas chunk): tests/test_wkv_kernel.py's sweep
 SWEEP = [(2, 128, 64, 64), (1, 256, 128, 128), (3, 192, 64, 64)]
