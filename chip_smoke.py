@@ -196,7 +196,23 @@ Phases, in order; any failure exits non-zero (no phase is caught):
    state after 5 steps equal to the per_step one leaf for leaf, bit for
    bit, and the evals at steps 0 and 5 finite and equal; steps/s of both
    dispatches, the peak memory and the card's busy share over one replayed
-   chunk.
+   chunk;
+18. the dry run on the card's roofline (``repro_torch.launch.dryrun``),
+   which runs no TPU kernel and so adds none: the trainer's step traced on
+   ``meta`` tensors on the one-card mesh, in a worker process started
+   before phase 2, at (a) phase 13's workload (full-width ``smollm-360m``,
+   MDBO, K = 4, 2 x 32 tokens a node, J = 2) and (b) phase 17's
+   (full-width ``whisper-tiny``), each held against the same step on the
+   card: the state's, step batch's and J̃'s bytes equal to the dry run's
+   ``argument_bytes``, a ``FlopCounterMode`` count of one per_step step
+   equal to its flops and within 10 % of K x (9 + 9 J) forwards of a node,
+   each forward's count equal to its matrix products summed by hand
+   (``forward_flops``), the card's peak over that step within 15 % of the
+   predicted peak, and the median of five replays of a one-step CUDA graph
+   no faster than ``t_compute``; prints ``t_compute``, ``t_memory``, the
+   bound and bound / measured. (c) ``repro_torch.optim``'s ``adamw`` after
+   ``clip_by_global_norm`` for 5 steps on a card tree against its CPU
+   copy, within 1e-6 relative.
 
 Prints a ``{"kernels": [...]}`` line naming all five kernels, then the
 card's name and power limit, and as its last line ``{"ok": true,
@@ -208,6 +224,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import json
+import multiprocessing
 import os
 import re
 import subprocess
@@ -433,6 +450,27 @@ CH_REQUESTS, CH_PROMPT_LENS, CH_CAPACITY, CH_SPEC_K = 4, (1100, 1401), 1440, 8
 # replays)
 WT_ARGV = ["--arch", WH_ARCH, "--steps", str(TR_STEPS), "--eval-every",
            str(TR_EVAL)]
+
+# phase 18: the dry run (repro_torch.launch.dryrun) of the trainer's step on
+# the one-card mesh at phases 13's and 17's workloads (MDBO on the ring mix,
+# K = 4, 2 x 32 tokens a node, J = 2), traced on meta tensors in a worker
+# process while phases 2-17 run, held against the same step on the card:
+# its inputs' bytes and its flops exactly, its peak within DRY_PEAK_RTOL of
+# the card's, and DRY_REPLAYS replays of a one-step graph no faster than
+# the compute bound
+DRY_ARCHS, DRY_PEAK_RTOL, DRY_REPLAYS = (TR_ARCH, WH_ARCH), 0.15, 5
+# ... and to arithmetic of its own: one forward of loss_fn on a node's batch
+# equal to forward_flops, and the step's flops within DRY_FACTOR_RTOL of
+# K x that forward x (9 + 9 J): each of the two gradients (of f, and of g in
+# y) costs 3 forwards (the forward, the input and the weight products), the
+# cross JVP 3 (the forward and its tangent's 2), each of the J
+# Hessian-vector products 9 (the forward 1, its tangent 2, the backward 2,
+# the backward's tangent 4); found 26.08 and 26.76 for 27 on meta tensors
+DRY_FACTOR_RTOL = 0.10
+# (c): adamw after clip_by_global_norm on the card against the CPU: the
+# same f32 arithmetic, a division and a square root an ulp apart at most,
+# over OPT_STEPS steps, relative to each leaf's largest magnitude
+OPT_STEPS, OPT_RTOL = 5, 1e-6
 
 
 def card_line() -> str:
@@ -2052,6 +2090,221 @@ def check_whisper_trainer(torch, card):
     print("[17] " + json.dumps(summary), flush=True)
     del eng, kept
     torch.cuda.empty_cache()
+    return summary
+
+
+def dry_run_worker(archs, train_shape, reduced=False) -> dict:
+    """Phase 18's dry runs, in a worker process of its own (CPU, one
+    intra-op thread; no card): ``run_pair`` of each arch's trainer step at
+    ``train_shape`` on the one-card mesh, its JSON under ``build/dryrun``."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.set_num_threads(1)
+    from repro_torch.launch.dryrun import run_pair
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.train import TrainerConfig
+
+    return {arch: run_pair(arch, mesh=make_debug_mesh(data=1, model=1),
+                           tc=TrainerConfig(mix="ring"),
+                           train_shape=tuple(train_shape), reduced=reduced,
+                           tag="reduced" if reduced else "", verbose=False)
+            for arch in archs}
+
+
+def forward_flops(cfg, B, S) -> int:
+    """The matrix products of one ``loss_fn`` forward of a dense or audio
+    ``cfg`` on ``B`` rows of ``S`` tokens, 2·m·n·k each: the projections
+    and the MLP per token, the attention's two products over every (query,
+    key) pair (the einsum attention computes the masked ones too), the
+    one-hot embedding and the logits (V·D a token each); whisper's encoder
+    over ``src_len`` frames and every decoder layer's cross-attention."""
+    D, H, Hkv, Dh, F, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.head_dim, cfg.d_ff, cfg.vocab)
+    T = B * S
+    mlp = (3 if cfg.act == "swiglu" else 2) * D * F
+    proj = 2 * D * H * Dh + 2 * D * Hkv * Dh
+    total = (cfg.n_layers * (2 * T * (proj + mlp) + 4 * B * H * S * S * Dh)
+             + 2 * 2 * T * V * D)
+    if cfg.is_encdec:
+        Ts = B * cfg.src_len
+        total += cfg.n_enc_layers * (2 * Ts * (proj + mlp)
+                                     + 4 * B * H * cfg.src_len ** 2 * Dh)
+        total += cfg.n_layers * (2 * T * 2 * D * H * Dh
+                                 + 2 * Ts * 2 * D * Hkv * Dh
+                                 + 4 * B * H * S * cfg.src_len * Dh)
+    return total
+
+
+def dry_step_check(torch, cfg, dry, K, per_node, seq, tag,
+                   replays=DRY_REPLAYS) -> dict:
+    """Phase 18 (a)/(b): the trainer's step of ``cfg`` (MDBO, the ring mix,
+    J = 2) on the card at the dry run's shape, held to the dry run
+    ``dry``: the state's, step batch's and J̃'s bytes equal to its
+    ``argument_bytes``; a ``FlopCounterMode`` count of one per_step step
+    equal to its flops, and to :func:`forward_flops` through the pass
+    factor (``DRY_FACTOR_RTOL``); the card's peak over that step (after
+    ``reset_peak_memory_stats``, less what the process held before this
+    check began: earlier phases' caches and the cuBLAS workspaces) within
+    ``DRY_PEAK_RTOL`` of its peak; the median of ``replays`` replays of a
+    one-step CUDA graph no faster than its ``t_compute``. Returns the
+    numbers."""
+    from repro_torch.core.common import replicate
+    from repro_torch.core.engine import _unaliased
+    from repro_torch.data import make_lm_step_batch
+    from repro_torch.models import loss_fn
+    from repro_torch.train import TrainerConfig, make_trainer_engine
+    from torch.utils import _pytree as pytree
+    from torch.utils.flop_counter import FlopCounterMode
+
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    tc = TrainerConfig(mix="ring")
+    problem, eng = make_trainer_engine(cfg, tc, K, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+
+    def draw():
+        return (make_lm_step_batch(cfg, gen, K, per_node, seq, J=tc.J),
+                torch.randint(0, tc.J, (K,), generator=gen, device=dev))
+
+    x0, y0 = problem.init_x(gen, dev), problem.init_y(gen, dev)
+    # the init state holds u, zf (and v, zg) as one tensor each; a step's
+    # state, which the dry run counts, holds each leaf on its own
+    state = _unaliased(eng.init(replicate(x0, K), replicate(y0, K), *draw()))
+    del x0, y0
+    batch, jt = draw()
+    got_args = sum(t.nbytes for t in pytree.tree_leaves((state, batch, jt)))
+    want_args = dry["global"]["argument_bytes"]
+    if got_args != want_args or dry["memory"]["argument_bytes"] != want_args:
+        raise AssertionError(f"{tag} argument bytes: the card holds "
+                             f"{got_args}, the dry run counts {want_args} "
+                             f"(per device {dry['memory']['argument_bytes']})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as counter:
+        new = eng.step(state, batch, jt)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    flops = counter.get_total_flops()
+    del new
+    if flops != dry["global"]["flops"]:
+        raise AssertionError(f"{tag} flops: the card's step counts {flops}, "
+                             f"the dry run {dry['global']['flops']}")
+    with FlopCounterMode(display=False) as counter:
+        loss_fn(cfg, *pytree.tree_map(lambda t: t[0], (state.y, batch["f"])))
+    fwd, want_fwd = counter.get_total_flops(), forward_flops(cfg, per_node,
+                                                             seq)
+    if fwd != want_fwd:
+        raise AssertionError(f"{tag} a node's forward counts {fwd} flops, "
+                             f"its matrix products {want_fwd}")
+    factor, want_factor = flops / (K * want_fwd), 9 + 9 * tc.J
+    if abs(factor / want_factor - 1) > DRY_FACTOR_RTOL:
+        raise AssertionError(f"{tag} the step counts {factor:.4f} forwards "
+                             f"a node, not {want_factor} within "
+                             f"{DRY_FACTOR_RTOL}")
+    want_peak = dry["global"]["peak_bytes"]
+    if abs(want_peak - peak) > DRY_PEAK_RTOL * peak:
+        raise AssertionError(f"{tag} peak: predicted {want_peak} B against "
+                             f"the card's {peak} B (ratio "
+                             f"{want_peak / peak:.4f}, limit "
+                             f"{DRY_PEAK_RTOL})")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    carry, _ = eng.run_chunk(state, [(batch, jt)])     # captures, replays
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    times = []
+    for _ in range(replays):
+        t0 = time.perf_counter()
+        carry, _ = eng.run_chunk(carry, [(batch, jt)])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = float(np.median(times))
+    rl = dry["roofline"]
+    bound = max(rl["t_compute_s"], rl["t_memory_s"], rl["t_collective_s"])
+    if step_s < rl["t_compute_s"]:
+        raise AssertionError(f"{tag} a replayed step took {step_s} s, below "
+                             f"the compute bound {rl['t_compute_s']} s: the "
+                             f"flop count is wrong")
+    del eng, state, carry, batch, jt
+    torch.cuda.empty_cache()
+    return {"argument_bytes": got_args, "flops": flops,
+            "forward_flops": want_fwd, "forwards_per_node": factor,
+            "peak_bytes": {"predicted": want_peak, "card": peak,
+                           "ratio": want_peak / peak},
+            "t_compute_s": rl["t_compute_s"], "t_memory_s": rl["t_memory_s"],
+            "bound_s": bound, "bound_by": rl["dominant"],
+            "replayed_step_s": step_s, "replays_s": times,
+            "bound_over_measured": bound / step_s,
+            "traffic_bytes": dry["global"]["traffic_bytes"],
+            "capture_s": capture_s, "trace_s": dry["trace_s"],
+            "useful_ratio": dry["useful_ratio"]}
+
+
+def optim_check(torch, steps=OPT_STEPS) -> float:
+    """Phase 18 (c): ``adamw`` after ``clip_by_global_norm`` for ``steps``
+    steps on a CUDA tree and on its CPU copy, on the same gradients; the
+    largest difference of a leaf relative to its largest magnitude, which
+    must stay within ``OPT_RTOL``."""
+    from repro_torch.optim import adamw, clip_by_global_norm
+    from torch.utils import _pytree as pytree
+
+    gen = torch.Generator().manual_seed(SEED + 18)
+    params = {"w": torch.randn(256, 384, generator=gen),
+              "b": torch.randn(384, generator=gen),
+              "emb": {"table": torch.randn(1000, 96, generator=gen)}}
+    grads = [pytree.tree_map(lambda p: 3.0 * torch.randn(
+        p.shape, generator=gen), params) for _ in range(steps)]
+    init, update = adamw()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = pytree.tree_map(lambda a: a.to(dev), params)
+        st = init(p)
+        for g in grads:
+            g = clip_by_global_norm(pytree.tree_map(lambda a: a.to(dev), g),
+                                    1.0)
+            ups, st = update(g, st, p, 1e-2)
+            p = pytree.tree_map(lambda a, u: a + u, p, ups)
+        out[dev] = pytree.tree_leaves(p) + pytree.tree_leaves(st.mu) + \
+            pytree.tree_leaves(st.nu)
+    rel = max(float((a.cpu() - b).abs().max() / b.abs().max())
+              for a, b in zip(out["cuda"], out["cpu"]))
+    if not rel <= OPT_RTOL:
+        raise AssertionError(f"[18c] adamw on the card departs from the CPU "
+                             f"by {rel:.3g} relative (limit {OPT_RTOL})")
+    return rel
+
+
+def check_dry_run(torch, card, dry):
+    """Phase 18: (a) smollm-360m and (b) whisper-tiny, each trainer step
+    held to its dry run (:func:`dry_step_check`); (c) :func:`optim_check`.
+    Prints each workload's bound beside its replayed step."""
+    from repro_torch.configs import get
+
+    summary = {"card": card}
+    for arch, tag in zip(DRY_ARCHS, ("[18a]", "[18b]")):
+        t0 = time.perf_counter()
+        r = dry_step_check(torch, get(arch).config, dry[arch], TR_K,
+                           TR_BATCH, TR_SEQ, tag)
+        summary[arch] = r
+        print(f"{tag} {arch}: argument bytes {r['argument_bytes']} and "
+              f"flops {r['flops']} equal to the dry run's, "
+              f"{r['forwards_per_node']:.4f} forwards of "
+              f"{r['forward_flops']} a node (9 + 9 J = 27); peak predicted "
+              f"{r['peak_bytes']['predicted']} B, the card's "
+              f"{r['peak_bytes']['card']} B (ratio "
+              f"{r['peak_bytes']['ratio']:.4f}); t_compute "
+              f"{r['t_compute_s']:.6f} s, t_memory {r['t_memory_s']:.6f} s, "
+              f"bound {r['bound_s']:.6f} s ({r['bound_by']}), replayed step "
+              f"{r['replayed_step_s']:.6f} s, bound / measured "
+              f"{r['bound_over_measured']:.4f}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    summary["optim_rel_err"] = optim_check(torch)
+    print(f"[18c] adamw + clip_by_global_norm, {OPT_STEPS} steps: the card "
+          f"within {summary['optim_rel_err']:.3g} of the CPU (limit "
+          f"{OPT_RTOL})")
+    print("[18] " + json.dumps(summary), flush=True)
     return summary
 
 
@@ -3787,6 +4040,11 @@ def main() -> int:
 
     t_start = time.perf_counter()
     t_lap = [t_start]
+    # phase 18's dry runs trace on the CPU while phases 2-17 use the card;
+    # the worker is joined at phase 18, or at exit
+    dry_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    dry = dry_pool.submit(dry_run_worker, DRY_ARCHS, (TR_K, TR_BATCH, TR_SEQ))
 
     def lap(tag):
         """Print the seconds since the previous phase ended."""
@@ -3932,6 +4190,10 @@ def main() -> int:
     lap("[16]")
     check_whisper_trainer(torch, card)
     lap("[17]")
+    dry_runs = dry.result()
+    dry_pool.shutdown()
+    check_dry_run(torch, card, dry_runs)
+    lap("[18]")
     print(f"[ ] total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

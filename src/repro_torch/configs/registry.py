@@ -45,3 +45,15 @@ def get(arch: str) -> ArchSpec:
 
 def all_specs() -> dict[str, ArchSpec]:
     return {name: get(name) for name in ARCHS}
+
+
+def pairs(include_skips: bool = False):
+    """The 40 (arch x shape) assignments; skips yield (pair, reason)."""
+    for arch in ARCHS:
+        spec = get(arch)
+        for shape in SHAPES.values():
+            if shape.name == "long_500k" and spec.long_ctx == "skip":
+                if include_skips:
+                    yield (arch, shape.name), spec.notes
+                continue
+            yield (arch, shape.name), None

@@ -18,6 +18,7 @@ import functools
 
 import torch
 
+from repro_torch import fold
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import rglru_ref
 
@@ -51,10 +52,13 @@ def check_args(a, x):
 def rglru_scan(a, x):
     """``h_t = a_t * h_{t-1} + x_t`` from ``h_0 = 0``: a/x [B, S, R] -> h
     [B, S, R] in a's dtype. ``rglru_scan.launches`` counts the kernel
-    launches (CPU calls to the plain version are not counted)."""
+    launches (CPU calls to the plain version, and meta calls to its folded
+    copy, are not counted)."""
     check_args(a, x)
     if a.device.type == "cpu":
         return rglru_ref(a, x)
+    if a.device.type == "meta":   # a dry run's trace (repro_torch.fold)
+        return fold.rglru(a, x)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on cuda or cpu, not {a.device}")
     B, S, R = a.shape

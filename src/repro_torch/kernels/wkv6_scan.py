@@ -23,6 +23,7 @@ import functools
 
 import torch
 
+from repro_torch import fold
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import wkv6_scan_ref
 
@@ -86,12 +87,14 @@ def wkv6_scan(r, k, v, w, u, s0=None):
     channels; w: the decay, same shape, f32; u: the bonus ``[H, Dh]`` f32;
     s0: ``[B, H, Dh, Dh]`` f32 or None. Returns (y ``[B, S, H, Dh]`` in r's
     dtype, S_T ``[B, H, Dh, Dh]`` f32, a new tensor). ``wkv6_scan.launches``
-    counts the kernel launches (CPU calls to the plain version are not
-    counted).
+    counts the kernel launches (CPU calls to the plain version, and meta
+    calls to its folded copy, are not counted).
     """
     check_args(r, k, v, w, u, s0)
     if r.device.type == "cpu":
         return wkv6_scan_ref(r, k, v, w, u, s0)
+    if r.device.type == "meta":   # a dry run's trace (repro_torch.fold)
+        return fold.wkv6_scan(r, k, v, w, u, s0)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6_scan runs on cuda or cpu, not {r.device}")
     B, S, H, Dh = r.shape

@@ -19,18 +19,24 @@ package's format. Weights are random, drawn from ``--seed``.
 Every registered architecture trains; the vlm and audio families' batches
 carry the modality stubs (``data.lm_batch_extras``). phi3.5-moe-42b-a6.6b,
 grok-1-314b and chameleon-34b are ``train_mode="fsdp_gt"`` in the JAX
-package, sharded over a mesh (not ported, ``ROADMAP.md`` queue 1, item 8):
-K copies of their full width do not fit one card, so on one card they
-train with ``--reduced``; without it they run out of card memory.
+package, sharded over a mesh. The port places them
+(``repro_torch.sharding.rules``, counted by ``repro_torch.launch.dryrun``)
+but does not yet execute it (DTensor/FSDP over several cards,
+``ROADMAP.md`` queue 1, item 8, after item 6): K copies of their full
+width do not fit one card, so on one card they train with ``--reduced``;
+without it they run out of card memory.
 
 ``--metrics DIR`` writes ``metrics.jsonl`` and ``metrics.prom`` into DIR
 and ``--trace-dir DIR`` a Perfetto-loadable ``trace.json``, as the JAX CLI
-does (``repro_torch.obs.cli_recorder``). The JAX CLI's ``--jax-profile``
-has no counterpart (``ROADMAP.md``, queue 1, item 8).
+does (``repro_torch.obs.cli_recorder``). ``--torch-profile`` brackets the
+run in ``torch.profiler`` (CUDA kernels on a card) and writes
+``torch_profile.json`` into ``--trace-dir``, the counterpart of the JAX
+CLI's ``--jax-profile``; it refuses to run without ``--trace-dir``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 import torch
 
@@ -40,7 +46,7 @@ from repro_torch.core.common import HParams
 from repro_torch.data import make_device_lm_sampler, make_node_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import param_count
-from repro_torch.obs import cli_recorder
+from repro_torch.obs import cli_recorder, torch_profile
 from repro_torch.train import TrainerConfig, make_trainer_engine
 
 
@@ -75,8 +81,13 @@ def main(argv: list[str] | None = None, on_eval=None):
                     help="write metrics.jsonl + metrics.prom into DIR")
     ap.add_argument("--trace-dir", default=None, metavar="DIR",
                     help="write a Perfetto-loadable trace.json into DIR")
+    ap.add_argument("--torch-profile", action="store_true",
+                    help="additionally capture a torch.profiler device "
+                         "trace into --trace-dir")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.torch_profile and not args.trace_dir:
+        raise SystemExit("--torch-profile needs --trace-dir")
 
     device = resolve_device(args.device)
     spec = get(args.arch)
@@ -103,8 +114,10 @@ def main(argv: list[str] | None = None, on_eval=None):
         if on_eval is not None:
             on_eval(t, state)
 
-    res = eng.run(sampler, eval_batch, steps=args.steps, seed=args.seed,
-                  eval_every=args.eval_every, on_eval=at_eval)
+    with (torch_profile(args.trace_dir) if args.torch_profile
+          else contextlib.nullcontext()):
+        res = eng.run(sampler, eval_batch, steps=args.steps, seed=args.seed,
+                      eval_every=args.eval_every, on_eval=at_eval)
     for row in res.as_rows():
         print(f"step {row['step']:4d} val-loss={row['upper_loss']:.4f} "
               f"train-obj={row['lower_loss']:.4f} "

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import fold
 from repro_torch.kernels import ops
 from repro_torch.models.layers import gelu, init_dense
 
@@ -78,10 +79,10 @@ def scan_steps(a, x):
     ``step``). a/x: [B, S, R] -> hs [B, S, R]."""
     h = torch.zeros_like(x[:, 0])
     hs = []
-    for t in range(x.shape[1]):
+    for t in range(fold.steps(x.shape[1])):
         h = a[:, t] * h + x[:, t]
         hs.append(h)
-    return torch.stack(hs, dim=1)
+    return torch.stack(fold.pad(hs, x.shape[1]), dim=1)
 
 
 def recurrent_block(cfg, p, x, *, scan=ops.rglru):

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import fold
 from repro_torch.kernels import ops
 from repro_torch.models.layers import init_dense
 
@@ -97,12 +98,12 @@ def wkv_scan(r, k, v, w, u, s0=None):
     state = (torch.zeros((B, H, Dh, Dh), dtype=torch.float32,
                          device=r.device) if s0 is None else s0)
     ys = []
-    for t in range(S):
+    for t in range(fold.steps(S)):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]       # [B, H, Dh, Dh]
         ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
                                state + u[None, :, :, None] * kv))
         state = w[:, t, :, :, None] * state + kv
-    return torch.stack(ys, dim=1).to(dt), state
+    return torch.stack(fold.pad(ys, S), dim=1).to(dt), state
 
 
 def time_mix(cfg, p, x, state=None, *, wkv=ops.wkv6):

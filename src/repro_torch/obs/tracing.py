@@ -11,8 +11,8 @@ the tracer's construction time, so timestamps are small microsecond floats
 as the trace-event spec expects.
 
 A copy of ``repro.obs.tracing.SpanTracer``: the same calls give the same
-events. The JAX package's ``jax_profile`` device-profiler bracket has no
-counterpart here (``ROADMAP.md``, queue 1, item 8).
+events. :func:`torch_profile` is the counterpart of the JAX package's
+``jax_profile`` device-profiler bracket.
 """
 from __future__ import annotations
 
@@ -81,3 +81,28 @@ class SpanTracer:
             json.dump(self.to_chrome_trace(), f)
             f.write("\n")
         return path
+
+
+@contextmanager
+def torch_profile(trace_dir: str):
+    """Opt-in ``torch.profiler`` bracket around a block: host operators and,
+    on a card, its CUDA kernels, exported as a Chrome trace,
+    ``torch_profile.json`` in ``trace_dir`` (beside the host-side
+    :class:`SpanTracer`'s ``trace.json``). The counterpart of
+    ``repro.obs.tracing.jax_profile``. Yields the profiler."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(trace_dir,
+                                              "torch_profile.json"))

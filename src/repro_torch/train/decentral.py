@@ -8,11 +8,15 @@ generators drive the run (``repro_torch.launch.train`` is a plain
 leading node axis on one device: the JAX package's ``dp`` placement without
 a mesh.
 
-The counterpart of ``repro.train.decentral``. Not ported yet: the mesh
-placements (``mesh=``, :func:`n_nodes`, :func:`node_axis_name`; ``fsdp_gt``)
-and the dry-run helpers (:func:`step_batch_specs`, :func:`node_keys_spec`,
-:func:`state_shape`) raise ``NotImplementedError`` (``ROADMAP.md``, queue 1,
-items 6 and 8).
+The counterpart of ``repro.train.decentral``. The node-placement policy
+(:func:`n_nodes`, :func:`node_axis_name`: ``dp`` puts K = the ``data``
+axis's participants on ``data``, ``fsdp_gt`` K = pods on ``pod``) reads a
+:class:`repro_torch.launch.mesh.Mesh`, and the dry-run helpers
+(:func:`state_shape`, :func:`step_batch_specs`, :func:`node_keys_spec`)
+give the step's inputs as ``meta`` tensors, shapes and dtypes without
+storage (:mod:`repro_torch.launch.dryrun`). Running the Engine over a mesh
+(``make_trainer_engine(mesh=)``, one node per process) is not ported
+(``ROADMAP.md``, queue 1, item 6).
 
 Algorithms come from the Engine registry: 'mdbo' (Alg. 1), 'vrdbo' (Alg. 2)
 and 'gt_sgd' — single-level gradient-tracking SGD ablation.
@@ -24,10 +28,11 @@ from functools import partial
 
 import torch
 
+from repro_torch.core import mdbo, vrdbo
 from repro_torch.core.common import HParams
 from repro_torch.core.engine import ALGORITHMS, Engine
 from repro_torch.core.engine import make_mix as make_engine_mix
-from repro_torch.core.hypergrad import HypergradConfig
+from repro_torch.core.hypergrad import HypergradConfig, tree_map
 from repro_torch.data.lm import (lm_batch_extras, make_lm_step_batch,
                                  make_node_batch)
 from repro_torch.models.config import ModelConfig
@@ -38,11 +43,9 @@ __all__ = ["TrainerConfig", "lm_batch_extras", "make_mix", "make_node_batch",
            "make_trainer_engine", "n_nodes", "node_axis_name",
            "node_keys_spec", "state_shape", "step_batch_specs"]
 
-_MESH = ("the trainer's mesh placements (dp and fsdp_gt over a device mesh) "
-         "wait on ROADMAP.md, queue 1, items 6 (ring_local over "
-         "torch.distributed) and 8 (a torch device mesh)")
-_DRY_RUN = ("the dry-run helpers wait on ROADMAP.md, queue 1, item 8 (the "
-            "JAX-specific tooling)")
+_MESH = ("running the trainer over a device mesh (one node per process) "
+         "waits on ROADMAP.md, queue 1, item 6 (ring_local over "
+         "torch.distributed)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,11 +58,14 @@ class TrainerConfig:
 
 
 def n_nodes(spec, mesh) -> int:
-    raise NotImplementedError(f"n_nodes: {_MESH}")
+    """K on ``mesh``: the pods for ``fsdp_gt``, the data axis for ``dp``."""
+    if spec.train_mode == "fsdp_gt":
+        return mesh.shape.get("pod", 1)
+    return mesh.shape.get("data", 1)
 
 
 def node_axis_name(spec) -> str:
-    raise NotImplementedError(f"node_axis_name: {_MESH}")
+    return "pod" if spec.train_mode == "fsdp_gt" else "data"
 
 
 def _mix_name(tc: TrainerConfig) -> str:
@@ -124,13 +130,49 @@ def make_step_batch(cfg: ModelConfig, tc: TrainerConfig,
     return make_lm_step_batch(cfg, generator, K, per_node, seq, J=tc.J)
 
 
-def step_batch_specs(cfg, tc, K, per_node, seq):
-    raise NotImplementedError(f"step_batch_specs: {_DRY_RUN}")
+def _meta(t: torch.Tensor, lead: tuple = ()) -> torch.Tensor:
+    return torch.empty(lead + tuple(t.shape), dtype=t.dtype, device="meta")
 
 
-def node_keys_spec(K):
-    raise NotImplementedError(f"node_keys_spec: {_DRY_RUN}")
+def step_batch_specs(cfg: ModelConfig, tc: TrainerConfig, K: int,
+                     per_node: int, seq: int) -> dict:
+    """:func:`make_step_batch`'s tree as ``meta`` tensors: 'f' and 'g'
+    leaves ``[K, per_node, ...]``, 'h' leaves ``[K, J, per_node, ...]``.
+    Every leaf's trailing shape and dtype come from one real draw of a
+    single row (the CPU, one node), so they are the sampler's own."""
+    row = make_step_batch(cfg, tc, torch.Generator().manual_seed(0), 1, 1,
+                          seq)
+    lead = {"f": (K, per_node), "g": (K, per_node),
+            "h": (K, tc.J, per_node)}
+    return {k: {n: _meta(t[(0,) * len(lead[k])], lead[k])
+                for n, t in leaves.items()}
+            for k, leaves in row.items()}
 
 
-def state_shape(cfg, tc, K):
-    raise NotImplementedError(f"state_shape: {_DRY_RUN}")
+def node_keys_spec(K: int) -> torch.Tensor:
+    """The per-node randomness the port's step takes: J̃, int64 ``[K]``
+    (``meta``), one truncation level per node, drawn outside the step
+    (:func:`repro_torch.core.hypergrad.draw_jtilde`). The JAX step takes
+    ``(K, 2)`` uint32 PRNG keys instead and draws J̃ inside: 8·K bytes
+    either way (32 at K = 4)."""
+    return torch.empty((K,), dtype=torch.int64, device="meta")
+
+
+def state_shape(cfg: ModelConfig, tc: TrainerConfig, K: int):
+    """The MDBO state after ``init`` (the VRDBO state for
+    ``tc.algo == "vrdbo"``; x, y and their trackers, each with node axis
+    K) as ``meta`` tensors, allocating nothing: the
+    problem's ``init_x``/``init_y`` run on fake tensors and only their
+    shapes and dtypes are kept."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    problem = make_lm_bilevel_problem(cfg)
+    with FakeTensorMode():
+        gen = torch.Generator().manual_seed(0)
+        x0, y0 = problem.init_x(gen, "cpu"), problem.init_y(gen, "cpu")
+    x = _meta(x0, (K,))
+    y = tree_map(lambda a: _meta(a, (K,)), y0)
+    if tc.algo == "vrdbo":
+        return vrdbo.VRDBOState(x=x, y=y, x_prev=x, y_prev=y, u=x, v=y,
+                                zf=x, zg=y)
+    return mdbo.MDBOState(x=x, y=y, u=x, v=y, zf=x, zg=y)
